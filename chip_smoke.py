@@ -1,0 +1,388 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Phases, each of which ends the run with a non-zero exit when it fails:
+
+1. build the hand-written CUDA kernel(s) from ``lip2speech_torch/csrc``;
+2. hold the AR-decode kernel against its plain PyTorch version at the
+   default widths and 300 steps, B in {1, 4, 8, 64, 256}, with f32 weights
+   (TF32 off) and with bf16 weights, and time both with CUDA events;
+3. drive the port's inference path (random weights from a seeded
+   ``torch.Generator``, default Config, bf16): B=4 requests of 29 mouth
+   frames and two face crops -> waveform, counting the kernel's launches;
+   check one f32 request on the GPU against the same request on the CPU;
+   time a batch at B=4 and B=256; run one long video of about 3 chunks.
+
+Timings print with the card's name and power limit. The line before the
+last is a JSON object listing each kernel; the last line is
+``{"ok": true, "device": {...}}``. Without CUDA, or without the package
+beside this file, it exits non-zero and prints no result.
+
+Usage: python3 chip_smoke.py [--profile]
+
+``--profile`` adds, for each timed batch, the device time by kernel of one
+batch (torch.profiler) and the device's idle share.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SEED = 1234
+KERNEL_BATCHES = (1, 4, 8, 64, 256)
+MAIN_B = 4
+TIMED_BATCHES = (MAIN_B, 256)
+GL_ITERS = 32
+MEL_FRAMES = 80
+LONG_VIDEO_FRAMES = 80  # three 29-frame chunks
+# published H100 SXM peaks (dense): bf16 tensor cores, f32 without them, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+# kernel vs plain version on the same inputs, 300 recurrent steps, max
+# absolute error on (mels, stop logits, attention weights):
+# f32: only the summation order differs (~1e-7 relative per product) and the
+#   recurrence carries it forward; the attention softmax is sharp (scores
+#   are scaled by a temperature of sqrt(512)), so its weights move ~100x
+#   more than the mels.
+# bf16: every product input is rounded to bf16 in both; an f32 difference
+#   in the last bit can move a rounding by one bf16 step (2^-8 relative),
+#   and that step is carried forward.
+TOL = {"float32": (1e-4, 1e-4, 2e-3), "bfloat16": (5e-3, 5e-3, 0.15)}
+# f32 pipeline on the GPU vs the CPU (cuDNN convs with TF32 off, the kernel
+# vs the plain loop, postnet): mel_postnet within 2e-2 absolute
+E2E_MEL_TOL = 2e-2
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ar_decode_work(cfg, B: int, T: int, S: int, M: int, weight_bytes: int) -> tuple[float, float]:
+    """(operations, bytes) of one AR decode: every input read once, every
+    output written once."""
+    F, H, L, NM = cfg.ffn_hidden_dim, cfg.ffn_hidden_dim // 2, cfg.content_latent_dim, cfg.n_mels
+    mat = NM * H + H * H + 2 * F * F + F * H + 2 * F * L + 2 * (2 * F * 4 * F) + F * NM + 2 * F
+    vec = 3 * H + 2 * H + 2 * F + H + L + 2 * 4 * F + NM + 1
+    flops = M * B * (2 * mat + 2 * 2 * T * F + 2 * 2 * S * L)
+    inputs = (mat * weight_bytes + vec * 4 + 2 * B * F * 4 + 2 * B * T * F * weight_bytes
+              + 2 * B * S * L * weight_bytes + B * F * 4 + B * NM * 4 + M * F * 4 + 8)
+    outputs = M * B * (NM + 1 + T) * 4
+    return float(flops), float(inputs + outputs)
+
+
+def bound_ms(flops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def first_crossing(fired):
+    """(M, B) bool -> (B,) 1-based first step that fired, M where none did."""
+    import torch
+
+    first = torch.argmax(fired.to(torch.int32), dim=0) + 1
+    return torch.where(fired.any(dim=0), first, torch.full_like(first, fired.shape[0]))
+
+
+def lengths_check(ref_stops, got_stops, threshold: float) -> tuple[bool, int, int]:
+    """Compare the first gate crossings of two stop-logit runs (M, B, 1).
+
+    Where the reference's logit passes within the measured stop error of the
+    threshold before it crosses, rounding decides the step (a near-tie).
+    Any run whose logits lie within that error crosses first somewhere in
+    [first step ref > thr - err, first step ref > thr + err]; lengths must
+    lie in that window widened by one step, which is "equal within one
+    step" for every row without a near-tie. Returns (ok, largest gap,
+    rows with a near-tie)."""
+    z = math.log(threshold / (1.0 - threshold))
+    ref, got = ref_stops[..., 0], got_stops[..., 0]
+    err = float((ref - got).abs().max())
+    lo = first_crossing(ref > z - err)
+    hi = first_crossing(ref > z + err)
+    n_ref, n_got = first_crossing(ref > z), first_crossing(got > z)
+    ok = bool(((n_got >= lo - 1) & (n_got <= hi + 1)).all())
+    return ok, int((n_ref - n_got).abs().max()), int((lo != hi).sum())
+
+
+def phase_build(card: str):
+    from lip2speech_torch.kernels import build
+
+    t0 = time.time()
+    build.build("ar_decode.cu")
+    print(f"build: ar_decode.cu in {time.time() - t0:.1f} s [{card}]")
+    for line in build.build_logs.get("ar_decode.cu", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+
+def make_encoder_inputs(cfg, B: int, T: int, gen, device):
+    """Unit-norm video features and face embedding, as the encoders emit."""
+    import torch
+
+    feats = torch.randn(B, T, cfg.video_feature_dim, generator=gen)
+    feats = feats / feats.norm(dim=-1, keepdim=True)
+    face = torch.relu(torch.randn(B, cfg.face_embedding_dim, generator=gen))
+    face = face / face.norm(dim=-1, keepdim=True)
+    visual = torch.cat([feats, face[:, None].expand(-1, T, -1)], dim=-1)
+    return visual.to(device), face.to(device)
+
+
+def phase_kernel(cfg, card: str, dev, batches=KERNEL_BATCHES, reps: int = 5) -> dict:
+    """The kernel against its plain version at each B; returns the results
+    by (B, dtype name)."""
+    import torch
+
+    from lip2speech_torch.kernels import ar_decode as ar
+    from lip2speech_torch.models.decoder import Decoder
+    from lip2speech_torch.models.lip2speech import init_random_
+
+    gen = torch.Generator().manual_seed(SEED)
+    dec = init_random_(Decoder(cfg.model), gen).to(dev).eval()
+    T = cfg.data.max_video_frames
+    M = cfg.model.max_decoder_steps
+    results = {}
+    bad = []
+    for B in batches:
+        with torch.no_grad():
+            visual, face = make_encoder_inputs(cfg.model, B, T, gen, dev)
+            enc = dec.encode(visual, face, generator=torch.Generator(device=dev).manual_seed(SEED))
+            p = dec.ar_params()
+            bos = dec.BOS.reshape(1, -1).expand(B, -1)
+            S = enc["content_key"].shape[1]
+            for wd in (torch.float32, torch.bfloat16):
+                name = str(wd).split(".")[-1]
+                ref = ar.ar_decode_reference(cfg.model, p, enc, bos, M, wd)
+                got = ar.ar_decode_cuda(cfg.model, p, enc, bos, M, wd)
+                torch.cuda.synchronize()
+                errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+                len_ok, len_gap, ties = lengths_check(ref[1], got[1], cfg.model.gate_threshold)
+                ms = cuda_ms(lambda: ar.ar_decode_cuda(cfg.model, p, enc, bos, M, wd), reps=reps)
+                plain = cuda_ms(lambda: ar.ar_decode_reference(cfg.model, p, enc, bos, M, wd), reps=1)
+                flops, nbytes = ar_decode_work(cfg.model, B, T, S, M, 2 if wd == torch.bfloat16 else 4)
+                bms, by = bound_ms(flops, nbytes, name)
+                finite = all(bool(torch.isfinite(g).all()) for g in got)
+                print(f"ar_decode B={B} {name}: max|err| mel {errs[0]:.3e} stop {errs[1]:.3e} "
+                      f"attn {errs[2]:.3e} (tol {TOL[name]}), lengths gap {len_gap} "
+                      f"({ties} near-tie rows); kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+                      f"bound {bms:.4f} ms ({by}) [{card}]")
+                results[(B, name)] = dict(err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms,
+                                          bound_by=by)
+                if not finite or not len_ok or any(e > t for e, t in zip(errs, TOL[name])):
+                    bad.append(f"B={B} {name}: errs {errs} vs {TOL[name]}, lengths ok {len_ok}, "
+                               f"finite {finite}")
+    if bad:
+        fail("kernel disagrees with its plain version: " + "; ".join(bad))
+    return results
+
+
+def make_request(cfg, B: int, gen, device, dtype, frames: int | None = None):
+    """Normalised mouth frames (B, T, 96, 96, 3) and face crops
+    (B, 2, 160, 160, 3), drawn on ``device`` from ``gen``."""
+    import torch
+
+    from lip2speech_torch.ops import image
+
+    d = cfg.data
+    T = frames or d.max_video_frames
+    mouth = torch.randint(0, 256, (B, T, *d.mouth_size, 3), generator=gen, device=device,
+                          dtype=torch.uint8)
+    faces = torch.randint(0, 256, (B, d.n_face_crops, *d.face_size, 3), generator=gen,
+                          device=device, dtype=torch.uint8)
+    return image.normalize_mouth(mouth).to(dtype), image.normalize_face(faces).to(dtype)
+
+
+def serve(model, cfg, video, faces, gen, gumbel=None, theta=None, compute_dtype=None):
+    """One batch through the inference path: model -> 80-frame mel prefix ->
+    NNLS + Griffin-Lim -> waveform (as bench.py times the JAX package)."""
+    from lip2speech_torch.ops.griffin_lim import mel_to_audio
+
+    out = model(video, faces, gumbel=gumbel, generator=gen)
+    mel = out["mel_postnet"].float()[..., :MEL_FRAMES]
+    wav = mel_to_audio(mel, cfg.audio, n_iter=GL_ITERS, compute_dtype=compute_dtype,
+                       generator=gen, theta=theta)
+    return out, wav
+
+
+def print_profile(fn, B: int, card: str, top: int = 8):
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and
+    the device's idle share of the call's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"profile B={B}: wall {wall_ms:.2f} ms (profiled), device busy {busy_ms:.2f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.3f} [{card}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        ms = e.self_device_time_total / 1e3
+        print(f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{e.count:<5d} {e.key[:90]}")
+
+
+def phase_pipeline(cfg, card: str, dev, timed_batches=TIMED_BATCHES, profile=False) -> int:
+    """The port's inference path; returns the kernel launches of the B=4 run.
+    With ``profile``, also prints where the device time of one batch goes."""
+    import numpy as np
+    import torch
+
+    from lip2speech_torch.eval.long_video import synthesize_long_video
+    from lip2speech_torch.kernels import ar_decode as ar
+    from lip2speech_torch.models.lip2speech import Lip2Speech, init_random_
+
+    bf16 = torch.bfloat16
+    M = cfg.model.max_decoder_steps
+    cpu_model = init_random_(Lip2Speech(cfg.model), torch.Generator().manual_seed(SEED))
+    model = copy.deepcopy(cpu_model).to(dev, bf16)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    # the main path: B=4 requests, counted
+    video, faces = make_request(cfg, MAIN_B, gen, dev, bf16)
+    ar.launches = 0
+    out, wav = serve(model, cfg, video, faces, gen, compute_dtype=bf16)
+    torch.cuda.synchronize(dev)
+    launches = ar.launches
+    lengths = out["lengths"]
+    n_samples = (MEL_FRAMES - 1) * cfg.audio.hop_length
+    print(f"pipeline B={MAIN_B}: wav {tuple(wav.shape)}, lengths {lengths.tolist()}, "
+          f"ar_decode launches {launches}")
+    if tuple(wav.shape) != (MAIN_B, n_samples) or not bool(torch.isfinite(wav).all()):
+        fail(f"pipeline waveform {tuple(wav.shape)} is not a finite ({MAIN_B}, {n_samples})")
+    if not bool(((lengths >= 1) & (lengths <= M)).all()):
+        fail(f"lengths {lengths.tolist()} outside [1, {M}]")
+    if launches < 1:
+        fail("the pipeline did not launch the ar_decode kernel")
+
+    # one f32 request on the GPU against the same request on the CPU
+    host_gen = torch.Generator().manual_seed(SEED)
+    gpu32 = copy.deepcopy(cpu_model).to(dev)
+    v1, f1 = make_request(cfg, 1, host_gen, "cpu", torch.float32)
+    S = max(1, cfg.data.max_video_frames // 7)
+    u = torch.rand(S, cfg.model.content_vocab_size, generator=host_gen)
+    gumbel = -torch.log(-torch.log(u.clamp(min=1e-30)))
+    theta = (torch.rand(1, cfg.audio.n_freqs, MEL_FRAMES, generator=host_gen) * 2 - 1) * math.pi
+    out_c, wav_c = serve(cpu_model, cfg, v1, f1, None, gumbel, theta)
+    out_g, wav_g = serve(gpu32, cfg, v1.to(dev), f1.to(dev), None, gumbel.to(dev), theta.to(dev))
+    mel_err = float((out_g["mel_postnet"].cpu() - out_c["mel_postnet"]).abs().max())
+    wav_rel = float((wav_g.cpu() - wav_c).norm() / wav_c.norm())
+    len_ok, len_gap, ties = lengths_check(out_c["gate"].transpose(0, 1).cpu(),
+                                          out_g["gate"].transpose(0, 1).cpu(),
+                                          cfg.model.gate_threshold)
+    print(f"f32 request, GPU vs CPU: max|mel_postnet err| {mel_err:.3e} (tol {E2E_MEL_TOL}), "
+          f"waveform rel. L2 err {wav_rel:.3e}, lengths {out_g['lengths'].tolist()} vs "
+          f"{out_c['lengths'].tolist()} ({ties} near-tie rows)")
+    if mel_err > E2E_MEL_TOL or not len_ok or not bool(torch.isfinite(wav_g).all()):
+        fail(f"f32 GPU pipeline disagrees with the CPU: mel err {mel_err:.3e}, lengths ok {len_ok}")
+
+    # batch latency (host clock around synchronised batches)
+    for B in timed_batches:
+        vb, fb = make_request(cfg, B, gen, dev, bf16)
+        serve(model, cfg, vb, fb, gen, compute_dtype=bf16)
+        torch.cuda.synchronize(dev)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            serve(model, cfg, vb, fb, gen, compute_dtype=bf16)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(times))
+        print(f"pipeline B={B}: {ms:.2f} ms per batch (median of 3: {[round(t, 2) for t in times]}), "
+              f"{B / ms * 1e3:.1f} clips/s [{card}]")
+        if profile:
+            print_profile(lambda: serve(model, cfg, vb, fb, gen, compute_dtype=bf16), B, card)
+
+    # one long video of about three chunks
+    mouth, face = make_request(cfg, 1, gen, dev, torch.float32, frames=LONG_VIDEO_FRAMES)
+    wav_l, mel_l = synthesize_long_video(model, mouth[0].cpu().numpy(), face[0].cpu().numpy(),
+                                         cfg, dev, gen, n_gl_iters=GL_ITERS)
+    print(f"long video: {LONG_VIDEO_FRAMES} frames -> mel {mel_l.shape}, wav {wav_l.shape}")
+    if not np.isfinite(wav_l).all() or mel_l.shape[0] != cfg.audio.n_mels or wav_l.ndim != 1:
+        fail("long-video synthesis gave a non-finite or misshapen result")
+    return launches
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+    if not os.path.isdir(os.path.join(ROOT, "lip2speech_torch")):
+        fail("lip2speech_torch is not beside chip_smoke.py")
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from lip2speech_torch.config import Config
+
+    cfg = Config()
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    phase_build(card)
+    results = phase_kernel(cfg, card, dev)
+    launches = phase_pipeline(cfg, card, dev, profile="--profile" in sys.argv[1:])
+
+    at_main = results[(MAIN_B, "bfloat16")]
+    kernels = [{
+        "name": "ar_decode",
+        "route": "cuda",
+        "source": "lip2speech_torch/csrc/ar_decode.cu",
+        "replaces": "lip2speech_tpu/ops/pallas_decoder.py:47",
+        "launches": launches,
+        "max_abs_err": at_main["err"],
+        "ms": at_main["ms"],
+        "plain_ms": at_main["plain_ms"],
+        "bound_ms": at_main["bound_ms"],
+        "bound_by": at_main["bound_by"],
+        # no single PyTorch call computes the AR decode
+        "library_ms": None,
+    }]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

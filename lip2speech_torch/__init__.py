@@ -1,0 +1,4 @@
+"""PyTorch/CUDA port of lip2speech_tpu: inference from mouth video to waveform.
+
+Imports torch, numpy and scipy only; nothing of JAX or of lip2speech_tpu.
+"""

@@ -1,0 +1,72 @@
+"""Top-level Lip2Speech model, inference forward (PyTorch).
+
+Counterpart of ``lip2speech_tpu/models/lip2speech.py`` with ``mels=None``:
+mouth-ROI video -> ``encoder`` features; the first face crop -> ``vgg_face``
+identity embedding (ReLU, then L2 norm); features + tiled embedding ->
+``decoder``. Layouts at the API edge match the JAX package: video
+``(B, T, H, W, 3)``, faces ``(B, n_crops, Hf, Wf, 3)``, mels ``(B, n_mels, M)``.
+An external ``speaker_embedding`` replaces the face net; a model built with
+``face_net=False`` has none, and loads a state dict without ``vgg_face.*``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from lip2speech_torch.config import ModelConfig
+from lip2speech_torch.models.decoder import Decoder
+from lip2speech_torch.models.face import FaceRecognizer
+from lip2speech_torch.models.video import VideoExtractor
+
+
+class Lip2Speech(nn.Module):
+    def __init__(self, cfg: ModelConfig, face_net: bool = True):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = VideoExtractor(cfg.frontend_channels, cfg.shufflenet_width)
+        self.vgg_face = FaceRecognizer() if face_net else None
+        self.decoder = Decoder(cfg)
+        self.eval()
+
+    @torch.no_grad()
+    def forward(self, video: torch.Tensor, faces: torch.Tensor | None = None,
+                speaker_embedding: torch.Tensor | None = None,
+                gumbel: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> dict:
+        """Free-running inference. ``gumbel`` is the content codebook's noise
+        (B*S, vocab); without it the draw comes from ``generator``."""
+        feats = self.encoder(video)
+        if speaker_embedding is None:
+            if self.vgg_face is None:
+                raise ValueError("a model without the face net needs a speaker_embedding")
+            speaker_embedding = self.vgg_face.inference(faces[:, 0].permute(0, 3, 1, 2))
+        T = feats.shape[1]
+        visual = torch.cat([feats, speaker_embedding[:, None, :].expand(-1, T, -1)], dim=-1)
+        out = self.decoder(visual, speaker_embedding, gumbel, generator)
+        out["speaker_embedding"] = speaker_embedding
+        return out
+
+
+@torch.no_grad()
+def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every weight from ``generator``: matrices and conv kernels
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), biases 0, BatchNorm statistics
+    (0, 1), the codebook U(0, 1), BOS N(0, 1); per-channel scales and the
+    temperatures keep their constructor values."""
+    for name, t in model.state_dict(keep_vars=True).items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "running_mean" or leaf.startswith("bias"):
+            t.zero_()
+        elif leaf == "running_var":
+            t.fill_(1.0)
+        elif leaf == "word_embeddings":
+            t.copy_(torch.rand(t.shape, generator=generator))
+        elif leaf == "BOS":
+            t.copy_(torch.randn(t.shape, generator=generator))
+        elif t.ndim >= 2:
+            bound = 1.0 / math.sqrt(t[0].numel())
+            t.copy_(torch.rand(t.shape, generator=generator) * (2 * bound) - bound)
+    return model
