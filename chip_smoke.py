@@ -18,10 +18,12 @@ last is a JSON object listing each kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 
-Usage: python3 chip_smoke.py [--profile]
+Usage: python3 chip_smoke.py [--profile | --kernel-only]
 
 ``--profile`` adds, for each timed batch, the device time by kernel of one
-batch (torch.profiler) and the device's idle share.
+batch (torch.profiler) and the device's idle share. ``--kernel-only`` runs
+phases 1 and 2 alone at B in {4, 256} (with the per-stage times) and prints
+no result line.
 """
 
 from __future__ import annotations
@@ -201,12 +203,28 @@ def phase_kernel(cfg, card: str, dev, batches=KERNEL_BATCHES, reps: int = 5) -> 
                       f"bound {bms:.4f} ms ({by}) [{card}]")
                 results[(B, name)] = dict(err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms,
                                           bound_by=by)
+                if B in TIMED_BATCHES and wd == torch.bfloat16:
+                    print_stages(ar, cfg.model, p, enc, bos, M, wd, B, card)
                 if not finite or not len_ok or any(e > t for e, t in zip(errs, TOL[name])):
                     bad.append(f"B={B} {name}: errs {errs} vs {TOL[name]}, lengths ok {len_ok}, "
                                f"finite {finite}")
     if bad:
         fail("kernel disagrees with its plain version: " + "; ".join(bad))
     return results
+
+
+def print_stages(ar, cfg, p, enc, bos, M: int, wd, B: int, card: str):
+    """Per-stage time of one launch (the kernel's stage timer), in us per step."""
+    import torch
+
+    names = ar.stage_names()
+    ns = torch.zeros(len(names), dtype=torch.int64, device=enc["k"].device)
+    ar.ar_decode_cuda(cfg, p, enc, bos, M, wd, stage_ns=ns)
+    torch.cuda.synchronize()
+    us = [v / 1e3 / M for v in ns.tolist()]
+    parts = ", ".join(f"{n} {u * M if n == 'init' else u:.2f}" for n, u in zip(names, us))
+    print(f"ar_decode stages B={B} {str(wd).split('.')[-1]} (us per step; init in us): {parts}; "
+          f"sum {sum(us[1:]):.2f} us per step [{card}]")
 
 
 def make_request(cfg, B: int, gen, device, dtype, frames: int | None = None):
@@ -359,6 +377,10 @@ def main() -> int:
     card = card_line()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build(card)
+    if "--kernel-only" in sys.argv[1:]:
+        phase_kernel(cfg, card, dev, batches=TIMED_BATCHES)
+        print(card)
+        return 0
     results = phase_kernel(cfg, card, dev)
     launches = phase_pipeline(cfg, card, dev, profile="--profile" in sys.argv[1:])
 

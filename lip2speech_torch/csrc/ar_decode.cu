@@ -43,7 +43,7 @@ constexpr int NT = 32;  // output columns per tile: one per lane
 constexpr int kErrNoCooperativeLaunch = 10001;
 constexpr int kErrNoOccupancy = 10002;
 constexpr int kErrBadShape = 10003;
-constexpr int kNumPtrs = 35;
+constexpr int kNumPtrs = 36;
 constexpr int kNumDims = 8;
 
 struct Params {
@@ -71,6 +71,7 @@ struct Params {
   float* attn;   // (M, B, T)
   float* scratch;
   unsigned int* barrier;  // 3 zeroed words: arrivals, generation, timeout flag
+  unsigned long long* stage_ns;  // null, or one slot per stage: ns summed over steps
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -97,6 +98,12 @@ __device__ __forceinline__ float round_to(float x) { return x; }
 template <>
 __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
@@ -351,7 +358,18 @@ __global__ void __launch_bounds__(kThreads) ar_decode_kernel(Params p) {
     cbuf[idx] = 0.f;
   }
   for (size_t idx = gtid; idx < (size_t)B * NM; idx += gstride) ys[idx] = p.bos[idx];
+  const bool timer = p.stage_ns != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
+  unsigned long long t_last = timer ? global_ns() : 0ull;
+  unsigned long long acc_ns[7] = {0, 0, 0, 0, 0, 0, 0};
+  auto lap = [&](int slot) {
+    if (timer) {
+      const unsigned long long t = global_ns();
+      acc_ns[slot] += t - t_last;
+      t_last = t;
+    }
+  };
   grid_barrier(p.barrier);
+  lap(0);
 
   for (int i = 0; i < p.M; ++i) {
     float* hc = hbuf + (size_t)(i & 1) * 2 * BF;        // h at the step's start
@@ -385,6 +403,7 @@ __global__ void __launch_bounds__(kThreads) ar_decode_kernel(Params p) {
       }
     }
     grid_barrier(p.barrier);
+    lap(1);
 
     // 2. prenet1; attention and content attention, one warp per batch row
     {
@@ -406,6 +425,7 @@ __global__ void __launch_bounds__(kThreads) ar_decode_kernel(Params p) {
       }
     }
     grid_barrier(p.barrier);
+    lap(2);
 
     // 3. attention projection + prenet -> rnn_in[:, L:]
     {
@@ -419,14 +439,17 @@ __global__ void __launch_bounds__(kThreads) ar_decode_kernel(Params p) {
       }
     }
     grid_barrier(p.barrier);
+    lap(3);
 
     // 4. LSTM layer 0 on [rnn_in | h0]
     lstm_stage<WT, BT>(rnn, hc, w_l0, p.b_l0, cbuf, hn, B, F, smem);
     grid_barrier(p.barrier);
+    lap(4);
 
     // 5. LSTM layer 1 on [h0' | h1]
     lstm_stage<WT, BT>(hn, hc + BF, w_l1, p.b_l1, cbuf + BF, hn + BF, B, F, smem);
     grid_barrier(p.barrier);
+    lap(5);
 
     // 6. next frame (fc_out) and stop logit from [h1', encoder_cell]
     {
@@ -450,7 +473,10 @@ __global__ void __launch_bounds__(kThreads) ar_decode_kernel(Params p) {
       }
     }
     grid_barrier(p.barrier);
+    lap(6);
   }
+  if (timer)
+    for (int k = 0; k < 7; ++k) p.stage_ns[k] += acc_ns[k];
 }
 
 template <typename WT, int BT>
@@ -528,12 +554,18 @@ int ar_decode_launch(void* const* ptrs, const int* dims, void* stream) {
   p.attn = static_cast<float*>(ptrs[i++]);
   p.scratch = static_cast<float*>(ptrs[i++]);
   p.barrier = static_cast<unsigned int*>(ptrs[i++]);
+  p.stage_ns = static_cast<unsigned long long*>(ptrs[i++]);
   if (i != kNumPtrs) return kErrBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_for_batch<__nv_bfloat16>(p, s) : launch_for_batch<float>(p, s);
 }
 
 int ar_decode_num_ptrs() { return kNumPtrs; }
+
+// Names of the stage_ns slots, comma-separated: each slot ends at a grid barrier.
+const char* ar_decode_stage_names() {
+  return "init,prenet0+Q+content_Q,prenet1+attention,attention_proj,lstm0,lstm1,fc_out+stop";
+}
 int ar_decode_num_dims() { return kNumDims; }
 
 const char* ar_decode_error_string(int code) {

@@ -137,6 +137,7 @@ def _library() -> ctypes.CDLL:
         lib.ar_decode_error_string.restype = ctypes.c_char_p
         lib.ar_decode_num_ptrs.restype = ctypes.c_int
         lib.ar_decode_num_dims.restype = ctypes.c_int
+        lib.ar_decode_stage_names.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
@@ -156,9 +157,19 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"ar_decode: {msg}")
 
 
+def stage_names() -> list[str]:
+    """What each slot of ``ar_decode_cuda``'s ``stage_ns`` times."""
+    return _library().ar_decode_stage_names().decode().split(",")
+
+
 def ar_decode_cuda(cfg: ModelConfig, p: dict, enc: dict, bos: torch.Tensor,
-                   n_steps: int | None = None, weight_dtype=torch.bfloat16):
-    """Launch the CUDA kernel on the current stream (no synchronisation)."""
+                   n_steps: int | None = None, weight_dtype=torch.bfloat16,
+                   stage_ns: torch.Tensor | None = None):
+    """Launch the CUDA kernel on the current stream (no synchronisation).
+
+    ``stage_ns``, an int64 tensor on the device with one slot per
+    ``stage_names()``, gets each stage's nanoseconds (block 0's clock from
+    one grid barrier to the next, summed over the steps) added to it."""
     global launches
     M = n_steps or cfg.max_decoder_steps
     F, NM, L = cfg.ffn_hidden_dim, cfg.n_mels, cfg.content_latent_dim
@@ -175,6 +186,9 @@ def ar_decode_cuda(cfg: ModelConfig, p: dict, enc: dict, bos: torch.Tensor,
         _check(tuple(enc[name].shape) == shape, f"enc[{name!r}] has shape {tuple(enc[name].shape)}, want {shape}")
         _check(enc[name].device == dev, f"enc[{name!r}] is on {enc[name].device}, want {dev}")
     _check(tuple(bos.shape) == (B, NM) and bos.device == dev, f"bos must be ({B}, {NM}) on {dev}")
+    if stage_ns is not None:
+        _check(stage_ns.dtype == torch.int64 and stage_ns.device == dev and stage_ns.is_contiguous(),
+               f"stage_ns must be a contiguous int64 tensor on {dev}")
     _check(F % 8 == 0 and L + F // 2 == F, "need ffn_hidden_dim % 8 == 0 and content_latent_dim == ffn_hidden_dim / 2")
 
     def vec(x):  # f32 values rounded to the weight type
@@ -212,10 +226,12 @@ def ar_decode_cuda(cfg: ModelConfig, p: dict, enc: dict, bos: torch.Tensor,
             mat(w["stop.kernel"]), vec(w["stop.bias"]),
             temps, mel, stop, attn, scratch, barrier,
         ]
-        _check(len(tensors) == lib.ar_decode_num_ptrs(), "pointer list out of step with the kernel")
+        _check(len(tensors) + 1 == lib.ar_decode_num_ptrs(), "pointer list out of step with the kernel")
         dims = [B, T, S, F, L, NM, M, int(weight_dtype == torch.bfloat16)]
         _check(len(dims) == lib.ar_decode_num_dims(), "dims out of step with the kernel")
-        ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+        _check(stage_ns is None or stage_ns.numel() >= len(stage_names()), "stage_ns has too few slots")
+        addrs = [t.data_ptr() for t in tensors] + [0 if stage_ns is None else stage_ns.data_ptr()]
+        ptrs = (ctypes.c_void_p * len(addrs))(*addrs)
         c_dims = (ctypes.c_int * len(dims))(*dims)
         err = lib.ar_decode_launch(ptrs, c_dims, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
