@@ -8,23 +8,43 @@
 // the attention projection, content attention over the S codebook slots
 // (queried by the CELL states), two LSTM cells (gates i, f, g, o), fc_out
 // (the next input frame) and the stop logit from [h1, encoder_cell].
-// State (h, c, ys) is f32 as in the Pallas kernel; matrix inputs are rounded
-// to the weight type before each product, products accumulate in f32.
+// State (c, the accumulators) is f32 as in the Pallas kernel; every product
+// input is rounded to the weight type, so activations that only feed
+// products (h, ys, the prenet output, the attention read, the LSTM input)
+// are stored in that type.
 //
-// What bounds it on an H100: the 300 steps are strictly sequential and each
-// step is six dependent stages of small products over ~5.25 M weights
-// (10.5 MB in bf16). At small batch the time is latency (stage count x
-// barrier + L2 round trips); at B=256 it is ~2.7 GFLOP of f32 FMA per step.
-// The design keeps everything in one cooperative launch: the grid stays
-// resident for all steps, the weights stay in device memory where the 50 MB
-// L2 holds them across steps, and a grid-wide barrier separates the six
-// stages. Stage work is split into tiles of (BT batch rows x 32 output
-// columns); a block takes tiles round-robin. A tile stages its BT input rows
-// in shared memory, each warp reduces one slice of K for 32 columns (one per
-// lane, coalesced weight reads), and the warps' partial sums are added in
-// shared memory. LSTM weight columns are permuted on the host so one tile
-// holds the four gates of 8 hidden units: the cell update needs no extra
-// barrier. No tensor cores, TMA or warp specialisation yet.
+// What bounds it on an H100: the 300 steps are strictly sequential, and
+// each is a chain of small products over ~5.24 M weights (10.5 MB in
+// bf16). At small batch the step time is latency: the grid barriers and
+// the round trips that feed each stage. At B=256 it is ~2.7 GFLOP a step.
+//
+// The design, against that:
+// - One cooperative launch of one block per SM runs every step. Every
+//   matrix's output columns are split in contiguous runs over the blocks
+//   (pack_ar_weights in the wrapper, which also writes the ownership table
+//   this kernel reads). LSTM columns are owned by whole hidden units, so a
+//   block finishes its units' cell updates without another barrier.
+// - bf16 weights stay resident: each block copies its ~80 KB of slices
+//   into shared memory once, before the first step. f32 weights (~21 MB)
+//   do not fit; the same code then reads the slices through L2.
+// - Five stages a step, each closed by one grid barrier:
+//   (A) fc_out and stop of step i-1, the attention query and the content
+//   query of step i (all read the LSTM outputs of step i-1);
+//   (B) prenet0, attention, content attention; (C) prenet1 + attention
+//   projection; (D) LSTM0; (E) LSTM1. The stop logit's encoder_cell part
+//   is constant over the steps and is computed once before the loop.
+// - A product stages row chunks of its input in shared memory with 16-byte
+//   cp.async copies, then runs FMA over register tiles (RT rows x 4 or 2
+//   column groups per lane) with K split over the 8 warps and one
+//   shared-memory reduction.
+// - Attention takes one block per batch row: lanes run over the keys, each
+//   reading its key's slice with 16-byte loads, so no load waits on a
+//   shuffle; one block-wide softmax; the read runs over F with independent
+//   loads.
+// - A grid barrier that waits more than ~4 s executes __trap(): the launch
+//   fails with a CUDA error at the next synchronisation instead of hanging
+//   the card or finishing with wrong outputs.
+// No tensor cores, TMA or warp specialisation yet.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into a shared
 // library with a plain C interface (lip2speech_torch/kernels/ar_decode.py).
@@ -39,71 +59,154 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int NT = 32;  // output columns per tile: one per lane
+constexpr int kTileCols = 16;           // packed columns of one product tile
+constexpr int kRedLd = kTileCols + 1;   // row stride of the reduction buffers
+constexpr int kNumMats = 6;
+constexpr int kTableCols = 2 + 3 * kNumMats;
+constexpr int kMetaCols = 5;
+constexpr int kVecHead = 4;             // vec: t_attn, t_content, b_stop, 0, then w_stop[F:]
+constexpr int kNumStages = 7;
 constexpr int kErrNoCooperativeLaunch = 10001;
 constexpr int kErrNoOccupancy = 10002;
 constexpr int kErrBadShape = 10003;
-constexpr int kNumPtrs = 36;
-constexpr int kNumDims = 8;
+constexpr int kNumPtrs = 18;
+constexpr int kNumDims = 10;
+constexpr unsigned long long kBarrierTimeoutNs = 4000000000ull;
+
+// the packed matrices, in the order of the wrapper's MATRICES
+enum { kQueryOut = 0, kContentQuery, kPrenet0, kProjPrenet1, kLstm0, kLstm1 };
 
 struct Params {
   int B, T, S, F, L, NM, M;
-  const float* h_init;  // (2, B, F)
+  int G;        // blocks in the grid = rows of the ownership table
+  int w_elems;  // weight elements a block keeps in shared memory (bf16)
+  const float* h_init;  // (2, B, F), rounded to the weight type
   const void* k;        // (B, T, F) weight type
   const void* v;        // (B, T, F)
   const void* ck;       // (B, S, L)
   const void* cv;       // (B, S, L)
-  const float* ec;      // (B, F) encoder cell projection
-  const float* bos;     // (B, NM)
-  const float* pos;     // (M, F)
-  const void* w_pre0; const float* b_pre0; const float* s_pre0;  // (NM, F/2)
-  const void* w_pre1; const float* b_pre1; const float* s_pre1;  // (F/2, F/2)
-  const void* w_q; const float* b_q; const float* s_q;           // (2F, F)
-  const void* w_attn; const float* b_attn;                       // (F, F/2)
-  const void* w_cq; const float* b_cq;                           // (2F, L)
-  const void* w_l0; const float* b_l0;  // (2F, 4F), [wx; wh], columns permuted
-  const void* w_l1; const float* b_l1;
-  const void* w_out; const float* b_out;    // (F, NM)
-  const void* w_stop; const float* b_stop;  // (2F, 1)
-  const float* temps;                       // [attention, content]
+  const float* ec;      // (B, F) encoder cell projection, rounded
+  const float* bos;     // (B, NM), rounded
+  const float* pos;     // (M, F), rounded
+  const void* w;        // packed weight slices, block after block
+  const int* table;     // (G, kTableCols): region offset, length, (unit0, units, offset) per matrix
+  const int* meta;      // (kNumMats, kMetaCols): K, ldw, unit width, vec offset, columns
+  const float* vec;     // kVecHead scalars, w_stop[F:], then each matrix's bias and scale
   float* mel;    // (M, B, NM)
   float* stop;   // (M, B)
   float* attn;   // (M, B, T)
-  float* scratch;
-  unsigned int* barrier;  // 3 zeroed words: arrivals, generation, timeout flag
-  unsigned long long* stage_ns;  // null, or one slot per stage: ns summed over steps
+  void* scratch;
+  unsigned int* barrier;         // 2 zeroed words: arrivals, generation
+  unsigned long long* stage_ns;  // null, or kNumStages slots of ns summed over steps
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int round_up(int a, int b) { return cdiv(a, b) * b; }
+__host__ __device__ constexpr size_t align_up(size_t a, size_t b) { return (a + b - 1) / b * b; }
+__host__ __device__ constexpr int nm_pad(int nm) { return round_up(nm, 8); }
 
-// per-warp shared floats of the attention stage: the scaled query, then scores
-__host__ __device__ inline int warp_floats(const Params& p) {
-  const int q = p.F > p.L ? p.F : p.L;
-  const int s = p.T > p.S ? p.T : p.S;
-  return q + round_up(s, 32);
+// Byte offsets of the launch's global scratch (activations and state).
+struct Scratch {
+  size_t h, cw, cf, ys, pre0, o, rnn, q, cq, stop_c, total;
+};
+
+__host__ __device__ inline size_t take(size_t& off, size_t bytes) {
+  const size_t at = off;
+  off += align_up(bytes, 256);
+  return at;
 }
 
-__host__ __device__ inline int max_k(const Params& p) {
-  return round_up(2 * p.F > p.NM ? 2 * p.F : p.NM, 4);
+__host__ __device__ inline Scratch scratch_layout(int B, int F, int L, int NM, int wbytes) {
+  const size_t BF = (size_t)B * F;
+  Scratch s;
+  size_t off = 0;
+  s.h = take(off, 4 * BF * wbytes);     // [parity][layer][B][F] h, weight type
+  s.cw = take(off, 2 * BF * wbytes);    // [layer][B][F] c rounded (content query input)
+  s.cf = take(off, 2 * BF * 4);         // [layer][B][F] c, f32
+  s.ys = take(off, (size_t)B * nm_pad(NM) * wbytes);  // last frame, zero-padded
+  s.pre0 = take(off, BF / 2 * wbytes);  // [B][F/2] prenet0 output
+  s.o = take(off, BF * wbytes);         // [B][F] attention read
+  s.rnn = take(off, BF * wbytes);       // [B][F] LSTM0 input [content_o | ys_mid]
+  s.q = take(off, BF * 4);              // [B][F] attention query, f32
+  s.cq = take(off, (size_t)B * L * 4);  // [B][L] content query, f32
+  s.stop_c = take(off, (size_t)B * 4);  // [B] encoder_cell part of the stop logit
+  s.total = off;
+  return s;
 }
+
+// shared floats of the attention stage (inside the staging area)
+__host__ __device__ inline int attn_floats(int F, int T, int L, int S, int vec) {
+  return F + (kWarps + 1) * round_up(T, 32) + kThreads * vec + L + round_up(S, 32);
+}
+
+// Byte offsets of a block's dynamic shared memory.
+struct Smem {
+  size_t w, x, red, out, total;
+  int x_elems;
+};
+
+template <typename WT>
+__host__ __device__ inline Smem smem_layout(const Params& p, int RC) {
+  constexpr int VEC = 16 / sizeof(WT);
+  Smem s;
+  size_t off = 0;
+  s.w = off;
+  if (sizeof(WT) == 2) off += align_up((size_t)p.w_elems * sizeof(WT), 16);
+  int x_elems = RC * (2 * p.F + VEC);
+  const int a = cdiv(attn_floats(p.F, p.T, p.L, p.S, VEC) * 4, sizeof(WT));
+  if (a > x_elems) x_elems = a;
+  s.x_elems = x_elems;
+  s.x = off;
+  off += align_up((size_t)x_elems * sizeof(WT), 16);
+  s.red = off;
+  off += align_up((size_t)kWarps * RC * kRedLd * 4, 16);
+  s.out = off;
+  off += align_up((size_t)RC * kRedLd * 4, 16);
+  s.total = off;
+  return s;
+}
+
+// One packed matrix as this block sees it.
+template <typename WT>
+struct Mat {
+  int K, ldw, width, ncols, u0, nu;
+  const WT* w;         // this block's slice: nu * width columns of ldw elements
+  const float* bias;   // (ncols), packed column order
+  const float* scale;  // (ncols)
+};
+
+// One piece of a product's input rows: columns [0, width) of a (B, ld) array.
+template <typename WT>
+struct Piece {
+  const WT* ptr;
+  int ld, width;
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// a product's input is rounded to the weight type, as the Pallas kernel's
-// _dot casts x to w.dtype
 template <typename WT>
-__device__ __forceinline__ float round_to(float x) { return x; }
+__device__ __forceinline__ WT from_f(float x);
 template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+
+__device__ __forceinline__ unsigned word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
-  return t;
+// element e of 16 bytes of WT values, as f32 (e is a constant after unrolling)
+template <typename WT>
+__device__ __forceinline__ float elem(const uint4& v, int e);
+template <>
+__device__ __forceinline__ float elem<float>(const uint4& v, int e) {
+  return __uint_as_float(word(v, e));
+}
+template <>
+__device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& v, int e) {
+  const unsigned u = word(v, e >> 1);
+  return __uint_as_float((e & 1) ? (u & 0xffff0000u) : (u << 16));
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
@@ -118,25 +221,51 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Grid-wide barrier. The launch is cooperative, so every block is resident.
-// A wait longer than ~4 s sets a flag and releases every later barrier at
-// once: a fault then ends the launch with wrong outputs instead of a hang.
-__device__ void grid_barrier(unsigned int* bar) {
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Grid-wide barrier: a global arrival counter and a generation word. The
+// launch is cooperative, so every block is resident. A wait longer than
+// kBarrierTimeoutNs traps, which fails the launch with a CUDA error.
+__device__ void grid_barrier(unsigned int* bar, unsigned int& gen) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    volatile unsigned int* timed_out = bar + 2;
-    const unsigned int my_gen = *gen;
+    ++gen;
     __threadfence();
     if (atomicAdd(bar, 1u) == gridDim.x - 1) {
       atomicExch(bar, 0u);
       __threadfence();
-      atomicAdd(bar + 1, 1u);
+      atomicExch(bar + 1, gen);
     } else {
-      const long long start = clock64();
-      while (*gen == my_gen && !*timed_out) {
-        __nanosleep(32);
-        if (clock64() - start > (1ll << 33)) *timed_out = 1u;
+      unsigned long long start = 0;
+      unsigned polls = 0;
+      while (ld_acquire(bar + 1) != gen) {
+        if ((++polls & 1023u) == 0) {
+          const unsigned long long now = global_ns();
+          if (start == 0) {
+            start = now;
+          } else if (now - start > kBarrierTimeoutNs) {
+            __trap();
+          }
+        }
       }
     }
     __threadfence();
@@ -144,223 +273,316 @@ __device__ void grid_barrier(unsigned int* bar) {
   __syncthreads();
 }
 
-// One (BT x NT) tile of X @ W with X = [xa | xb] (B x (ka + kb), f32, written
-// by this launch, so read through L2) and W ((ka + kb) x n, row-major).
-// Returns the tile sums in shared memory, red[r * NT + c], and the tile's
-// first row and column.
-template <typename WT, int BT>
-__device__ const float* gemm_tile(const float* xa, int lda, int ka, const float* xb,
-                                  int ldb, int kb, const WT* __restrict__ w, int n,
-                                  int B, int tile, float* smem, int& row0, int& col0) {
-  const int K = ka + kb;
-  const int Kp = round_up(K, 4);
-  const int nct = cdiv(n, NT);
-  row0 = (tile / nct) * BT;
-  col0 = (tile % nct) * NT;
-  float* xs = smem;             // [BT][Kp]
-  float* red = smem + BT * Kp;  // [kWarps][BT][NT]
+// Copies rows [r0, r0 + nr) of the pieces, side by side, into xs (row
+// stride ldx). Rows past nr keep what they held; their results are dropped.
+template <typename WT>
+__device__ void stage_rows(WT* xs, int ldx, const Piece<WT>* pcs, int np, int r0, int nr) {
+  constexpr int VEC = 16 / sizeof(WT);
+  int off = 0;
+  for (int q = 0; q < np; ++q) {
+    const int nv = pcs[q].width / VEC;
+    for (int idx = threadIdx.x; idx < nr * nv; idx += kThreads) {
+      const int r = idx / nv, v = idx - r * nv;
+      cp_async16(xs + (size_t)r * ldx + off + v * VEC, pcs[q].ptr + (size_t)(r0 + r) * pcs[q].ld + v * VEC);
+    }
+    off += pcs[q].width;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+}
 
-  __syncthreads();  // the block's previous user of shared memory is done
-  for (int idx = threadIdx.x; idx < BT * Kp; idx += kThreads) {
-    const int r = idx / Kp, k = idx - r * Kp, row = row0 + r;
-    float x = 0.f;
-    if (row < B && k < K)
-      x = k < ka ? __ldcg(xa + (size_t)row * lda + k) : __ldcg(xb + (size_t)row * ldb + (k - ka));
-    xs[idx] = round_to<WT>(x);
+// out[r * kRedLd + c] = sum_k xs[r][k] * w[c][k] for the RC = 8 * RT staged
+// rows and the tile's nc <= 4 * MC columns (w column-major, ldw apart).
+// Lane (rg, cg) of each warp holds rows rg + 8 j and columns cg + 4 m; the
+// warps split K and add their partial sums in shared memory.
+template <typename WT, int RT, int MC>
+__device__ void tile_product(const WT* xs, int ldx, int K, const WT* w, int ldw, int nc, float* red,
+                             float* out) {
+  constexpr int VEC = 16 / sizeof(WT);
+  constexpr int RC = 8 * RT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = lane >> 2, cg = lane & 3;
+  const WT* wp[MC];
+#pragma unroll
+  for (int m = 0; m < MC; ++m) wp[m] = w + (size_t)min(cg + 4 * m, nc - 1) * ldw;
+  const WT* xp[RT];
+#pragma unroll
+  for (int j = 0; j < RT; ++j) xp[j] = xs + (size_t)(rg + 8 * j) * ldx;
+  float acc[RT][MC];
+#pragma unroll
+  for (int j = 0; j < RT; ++j)
+#pragma unroll
+    for (int m = 0; m < MC; ++m) acc[j][m] = 0.f;
+
+  const int nv = K / VEC;
+#pragma unroll 2
+  for (int v = warp; v < nv; v += kWarps) {
+    const int k = v * VEC;
+    uint4 wr[MC], xr[RT];
+#pragma unroll
+    for (int m = 0; m < MC; ++m) wr[m] = *reinterpret_cast<const uint4*>(wp[m] + k);
+#pragma unroll
+    for (int j = 0; j < RT; ++j) xr[j] = *reinterpret_cast<const uint4*>(xp[j] + k);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      float wf[MC], xf[RT];
+#pragma unroll
+      for (int m = 0; m < MC; ++m) wf[m] = elem<WT>(wr[m], e);
+#pragma unroll
+      for (int j = 0; j < RT; ++j) xf[j] = elem<WT>(xr[j], e);
+#pragma unroll
+      for (int j = 0; j < RT; ++j)
+#pragma unroll
+        for (int m = 0; m < MC; ++m) acc[j][m] = fmaf(xf[j], wf[m], acc[j][m]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < RT; ++j)
+#pragma unroll
+    for (int m = 0; m < MC; ++m) red[(warp * RC + rg + 8 * j) * kRedLd + cg + 4 * m] = acc[j][m];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < RC * 4 * MC; idx += kThreads) {
+    const int r = idx / (4 * MC), c = idx - r * (4 * MC);
+    float s = 0.f;
+#pragma unroll
+    for (int g = 0; g < kWarps; ++g) s += red[(g * RC + r) * kRedLd + c];
+    out[r * kRedLd + c] = s;
   }
   __syncthreads();
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = col0 + lane;
-  float acc[BT];
-#pragma unroll
-  for (int r = 0; r < BT; ++r) acc[r] = 0.f;
-  if (col < n) {
-#pragma unroll 2
-    for (int k = warp * 4; k < K; k += kWarps * 4) {
-      const WT* wk = w + (size_t)k * n + col;
-      const float w0 = to_f(wk[0]);
-      const float w1 = k + 1 < K ? to_f(wk[n]) : 0.f;
-      const float w2 = k + 2 < K ? to_f(wk[2 * n]) : 0.f;
-      const float w3 = k + 3 < K ? to_f(wk[3 * n]) : 0.f;
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const float4 x = *reinterpret_cast<const float4*>(xs + r * Kp + k);
-        acc[r] = fmaf(x.x, w0, acc[r]);
-        acc[r] = fmaf(x.y, w1, acc[r]);
-        acc[r] = fmaf(x.z, w2, acc[r]);
-        acc[r] = fmaf(x.w, w3, acc[r]);
+// All rows of this block's columns of one matrix. The input rows are the
+// pieces side by side (K = the sum of their widths). Calls
+// epi(row, unit, sums) with the unit's `width` column sums.
+template <typename WT, int RT, typename Epi>
+__device__ void run_matrix(const Mat<WT>& m, const Piece<WT>* pcs, int np, int B, WT* xs, int x_elems,
+                           float* red, float* out, Epi epi) {
+  constexpr int VEC = 16 / sizeof(WT);
+  constexpr int RC = 8 * RT;
+  if (m.nu == 0) return;
+  const int ldx = m.K + VEC;
+  const int cap = (x_elems / ldx) / RC * RC;
+  const int upt = kTileCols / m.width;
+  for (int r0 = 0; r0 < B; r0 += cap) {
+    const int nr = min(cap, B - r0);
+    __syncthreads();  // the staging area is free
+    stage_rows<WT>(xs, ldx, pcs, np, r0, nr);
+    for (int rs = 0; rs < nr; rs += RC) {
+      for (int ut = 0; ut < m.nu; ut += upt) {
+        const int nut = min(upt, m.nu - ut), nc = nut * m.width;
+        const WT* w = m.w + (size_t)ut * m.width * m.ldw;
+        if (nc <= 8)
+          tile_product<WT, RT, 2>(xs + (size_t)rs * ldx, ldx, m.K, w, m.ldw, nc, red, out);
+        else
+          tile_product<WT, RT, 4>(xs + (size_t)rs * ldx, ldx, m.K, w, m.ldw, nc, red, out);
+        for (int idx = threadIdx.x; idx < RC * nut; idx += kThreads) {
+          const int r = idx / nut, u = idx - r * nut, row = r0 + rs + r;
+          if (row < B) epi(row, m.u0 + ut + u, out + r * kRedLd + u * m.width);
+        }
+        __syncthreads();
       }
     }
   }
-#pragma unroll
-  for (int r = 0; r < BT; ++r) red[(warp * BT + r) * NT + lane] = acc[r];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < BT * NT; idx += kThreads) {
-    float s = 0.f;
-    for (int g = 0; g < kWarps; ++g) s += red[g * BT * NT + idx];
-    red[idx] = s;
-  }
-  __syncthreads();
-  return red;
 }
 
-// Calls fn(row, col, sum) for every valid element of a finished tile.
-template <int BT, typename Fn>
-__device__ __forceinline__ void for_tile(const float* red, int row0, int col0, int B, int n,
-                                         Fn fn) {
-  for (int idx = threadIdx.x; idx < BT * NT; idx += kThreads) {
-    const int r = idx / NT, c = idx - r * NT;
-    const int row = row0 + r, col = col0 + c;
-    if (row < B && col < n) fn(row, col, red[idx]);
-  }
-}
-
-// One LSTM layer for all rows: gates = [x | h] @ w + bias; a tile's 32
-// columns are gates i, f, g, o (8 columns each) of 8 consecutive units.
-template <typename WT, int BT>
-__device__ void lstm_stage(const float* x, const float* h, const WT* __restrict__ w,
-                           const float* __restrict__ bias, float* c, float* h_out, int B,
-                           int F, float* smem) {
-  const int n_tiles = cdiv(B, BT) * (4 * F / NT);
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    int r0, c0;
-    const float* red = gemm_tile<WT, BT>(x, F, F, h, F, F, w, 4 * F, B, t, smem, r0, c0);
-    const int u0 = c0 / 4;
-    for (int idx = threadIdx.x; idx < BT * 8; idx += kThreads) {
-      const int r = idx >> 3, u = idx & 7, row = r0 + r;
-      if (row >= B) continue;
-      const float* g = red + r * NT;
-      const float gi = g[u] + bias[c0 + u];
-      const float gf = g[8 + u] + bias[c0 + 8 + u];
-      const float gg = g[16 + u] + bias[c0 + 16 + u];
-      const float go = g[24 + u] + bias[c0 + 24 + u];
-      const size_t o = (size_t)row * F + u0 + u;
-      const float cn = sigmoid(gf) * __ldcg(c + o) + sigmoid(gi) * tanhf(gg);
-      c[o] = cn;
-      h_out[o] = sigmoid(go) * tanhf(cn);
-    }
-  }
-}
-
-// Softmax attention for batch row b on one warp: encoder attention (writes
-// the weights to attn[i] and the read to ob) and content attention (writes
-// rnn_in[:, :L]). ws is the warp's shared scratch.
+// Attention and content attention of batch row b at step i, on the whole
+// block. Writes attn[i, b], the attention read o[b] and rnn[b, :L].
 template <typename WT>
-__device__ void attend_row(const Params& p, int i, int b, const float* qb, const float* cqb,
-                           float* ob, float* rnn, float* ws) {
-  const int lane = threadIdx.x & 31;
+__device__ void attend_row(const Params& p, int i, int b, const float* q, const float* cq, WT* o,
+                           WT* rnn, float* fs) {
+  constexpr int VEC = 16 / sizeof(WT);
   const int T = p.T, F = p.F, S = p.S, L = p.L;
-  const int qf = p.F > p.L ? p.F : p.L;
-  float* qs = ws;
-  float* sc = ws + qf;
+  const int Tp = round_up(T, 32);
+  const int nvF = F / VEC;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* qs = fs;                   // [F] scaled query
+  float* sp = qs + F;               // [kWarps][Tp] partial scores
+  float* prob = sp + kWarps * Tp;   // [Tp]
+  float* op = prob + Tp;            // [kThreads * VEC] partial reads
+  float* qc = op + kThreads * VEC;  // [L]
+  float* csc = qc + L;              // [round_up(S, 32)]
 
   // encoder attention: the temperature scales q before the dot
   const WT* kb = static_cast<const WT*>(p.k) + (size_t)b * T * F;
   const WT* vb = static_cast<const WT*>(p.v) + (size_t)b * T * F;
-  const float ta = p.temps[0];
-  for (int f = lane; f < F; f += 32) qs[f] = __ldcg(qb + (size_t)b * F + f) * ta;
-  __syncwarp();
-  for (int t = 0; t < T; ++t) {
+  const float ta = p.vec[0];
+  for (int f = threadIdx.x; f < F; f += kThreads) qs[f] = __ldcg(q + (size_t)b * F + f) * ta;
+  __syncthreads();
+  // warp w takes a contiguous run of F; lane t takes key t
+  const int v0 = nvF * warp / kWarps, v1 = nvF * (warp + 1) / kWarps;
+  for (int t0 = 0; t0 < T; t0 += 32) {
+    const int t = t0 + lane;
+    if (t < T) {
+      const WT* kr = kb + (size_t)t * F;
+      float s = 0.f;
+      for (int v = v0; v < v1; ++v) {
+        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(kr + v * VEC));
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) s = fmaf(qs[v * VEC + e], elem<WT>(raw, e), s);
+      }
+      sp[warp * Tp + t] = s;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float m = -INFINITY;
+    for (int t = lane; t < T; t += 32) {
+      float s = 0.f;
+      for (int g = 0; g < kWarps; ++g) s += sp[g * Tp + t];
+      prob[t] = s;
+      m = fmaxf(m, s);
+    }
+    m = warp_max(m);
+    float z = 0.f;
+    for (int t = lane; t < T; t += 32) {
+      const float e = expf(prob[t] - m);
+      prob[t] = e;
+      z += e;
+    }
+    z = warp_sum(z);
+    float* attn_row = p.attn + ((size_t)i * p.B + b) * T;
+    for (int t = lane; t < T; t += 32) {
+      const float a = prob[t] / z;
+      prob[t] = a;
+      attn_row[t] = a;
+    }
+  }
+  __syncthreads();
+  // the read: thread (group g, vector v) sums keys g, g + ng, ...
+  const int ng = kThreads / nvF;
+  {
+    const int g = threadIdx.x / nvF, v = threadIdx.x - g * nvF;
+    if (g < ng) {
+      float acc[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+      for (int t = g; t < T; t += ng) {
+        const float a = prob[t];
+        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(vb + (size_t)t * F + v * VEC));
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(a, elem<WT>(raw, e), acc[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) op[g * F + v * VEC + e] = acc[e];
+    }
+  }
+  __syncthreads();
+  for (int f = threadIdx.x; f < F; f += kThreads) {
     float s = 0.f;
-    for (int f = lane; f < F; f += 32) s = fmaf(qs[f], to_f(kb[(size_t)t * F + f]), s);
-    s = warp_sum(s);
-    if (lane == 0) sc[t] = s;
+    for (int g = 0; g < ng; ++g) s += op[g * F + f];
+    o[(size_t)b * F + f] = from_f<WT>(s);
   }
-  __syncwarp();
-  float m = -INFINITY;
-  for (int t = lane; t < T; t += 32) m = fmaxf(m, sc[t]);
-  m = warp_max(m);
-  float z = 0.f;
-  for (int t = lane; t < T; t += 32) {
-    const float e = expf(sc[t] - m);
-    sc[t] = e;
-    z += e;
-  }
-  z = warp_sum(z);
-  float* attn_row = p.attn + ((size_t)i * p.B + b) * T;
-  for (int t = lane; t < T; t += 32) {
-    const float a = sc[t] / z;
-    sc[t] = a;
-    attn_row[t] = a;
-  }
-  __syncwarp();
-  for (int f = lane; f < F; f += 32) {
-    float o = 0.f;
-    for (int t = 0; t < T; ++t) o = fmaf(sc[t], to_f(vb[(size_t)t * F + f]), o);
-    ob[(size_t)b * F + f] = o;
-  }
-  __syncwarp();
 
   // content attention over the S slots
   const WT* ckb = static_cast<const WT*>(p.ck) + (size_t)b * S * L;
   const WT* cvb = static_cast<const WT*>(p.cv) + (size_t)b * S * L;
-  const float tc = p.temps[1];
-  for (int l = lane; l < L; l += 32) qs[l] = __ldcg(cqb + (size_t)b * L + l) * tc;
-  __syncwarp();
-  for (int s = 0; s < S; ++s) {
+  const float tc = p.vec[1];
+  for (int l = threadIdx.x; l < L; l += kThreads) qc[l] = __ldcg(cq + (size_t)b * L + l) * tc;
+  __syncthreads();
+  for (int s = warp; s < S; s += kWarps) {
     float d = 0.f;
-    for (int l = lane; l < L; l += 32) d = fmaf(qs[l], to_f(ckb[(size_t)s * L + l]), d);
+    for (int l = lane; l < L; l += 32) d = fmaf(qc[l], to_f(ckb[(size_t)s * L + l]), d);
     d = warp_sum(d);
-    if (lane == 0) sc[s] = d;
+    if (lane == 0) csc[s] = d;
   }
-  __syncwarp();
-  m = -INFINITY;
-  for (int s = lane; s < S; s += 32) m = fmaxf(m, sc[s]);
-  m = warp_max(m);
-  z = 0.f;
-  for (int s = lane; s < S; s += 32) {
-    const float e = expf(sc[s] - m);
-    sc[s] = e;
-    z += e;
+  __syncthreads();
+  if (warp == 0) {
+    float m = -INFINITY;
+    for (int s = lane; s < S; s += 32) m = fmaxf(m, csc[s]);
+    m = warp_max(m);
+    float z = 0.f;
+    for (int s = lane; s < S; s += 32) z += expf(csc[s] - m);
+    z = warp_sum(z);
+    for (int s = lane; s < S; s += 32) csc[s] = expf(csc[s] - m) / z;
   }
-  z = warp_sum(z);
-  __syncwarp();
-  for (int l = lane; l < L; l += 32) {
-    float o = 0.f;
-    for (int s = 0; s < S; ++s) o = fmaf(sc[s] / z, to_f(cvb[(size_t)s * L + l]), o);
-    rnn[(size_t)b * F + l] = o;
+  __syncthreads();
+  for (int l = threadIdx.x; l < L; l += kThreads) {
+    float acc = 0.f;
+    for (int s = 0; s < S; ++s) acc = fmaf(csc[s], to_f(cvb[(size_t)s * L + l]), acc);
+    rnn[(size_t)b * F + l] = from_f<WT>(acc);
   }
-  __syncwarp();
+  __syncthreads();  // the shared floats are free for the next row
 }
 
-template <typename WT, int BT>
-__global__ void __launch_bounds__(kThreads) ar_decode_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const int B = p.B, F = p.F, L = p.L, NM = p.NM, H = p.F / 2;
-  const size_t BF = (size_t)B * F;
-  float* hbuf = p.scratch;                // [2 parity][2 layer][B][F]
-  float* cbuf = hbuf + 4 * BF;            // [2 layer][B][F]
-  float* ys = cbuf + 2 * BF;              // [B][NM] last output frame
-  float* pre0 = ys + (size_t)B * NM;      // [B][H]
-  float* pre1 = pre0 + (size_t)B * H;     // [B][H]
-  float* qb = pre1 + (size_t)B * H;       // [B][F] attention query
-  float* cqb = qb + BF;                   // [B][L] content query
-  float* ob = cqb + (size_t)B * L;        // [B][F] attention read
-  float* rnn = ob + BF;                   // [B][F] [content_o | ys_mid]
-  const WT* w_pre0 = static_cast<const WT*>(p.w_pre0);
-  const WT* w_pre1 = static_cast<const WT*>(p.w_pre1);
-  const WT* w_q = static_cast<const WT*>(p.w_q);
-  const WT* w_attn = static_cast<const WT*>(p.w_attn);
-  const WT* w_cq = static_cast<const WT*>(p.w_cq);
-  const WT* w_l0 = static_cast<const WT*>(p.w_l0);
-  const WT* w_l1 = static_cast<const WT*>(p.w_l1);
-  const WT* w_out = static_cast<const WT*>(p.w_out);
-  const WT* w_stop = static_cast<const WT*>(p.w_stop);
-  const int RT = cdiv(B, BT);
-  const int wf = warp_floats(p);
+template <typename WT, int RT>
+__global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
+  constexpr int VEC = 16 / sizeof(WT);
+  constexpr bool kResident = sizeof(WT) == 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Mat<WT> mats[kNumMats];
+  const Smem sl = smem_layout<WT>(p, 8 * RT);
+  WT* ws = reinterpret_cast<WT*>(smem + sl.w);
+  WT* xs = reinterpret_cast<WT*>(smem + sl.x);
+  float* red = reinterpret_cast<float*>(smem + sl.red);
+  float* out = reinterpret_cast<float*>(smem + sl.out);
 
-  // h <- encoder finals, c <- 0, ys <- BOS
+  const int B = p.B, F = p.F, L = p.L, NM = p.NM, H = p.F / 2, NMp = nm_pad(p.NM);
+  const size_t BF = (size_t)B * F;
+  const Scratch lo = scratch_layout(B, F, L, NM, sizeof(WT));
+  unsigned char* sc = static_cast<unsigned char*>(p.scratch);
+  WT* hw = reinterpret_cast<WT*>(sc + lo.h);
+  WT* cw = reinterpret_cast<WT*>(sc + lo.cw);
+  float* cf = reinterpret_cast<float*>(sc + lo.cf);
+  WT* ys = reinterpret_cast<WT*>(sc + lo.ys);
+  WT* pre0 = reinterpret_cast<WT*>(sc + lo.pre0);
+  WT* ob = reinterpret_cast<WT*>(sc + lo.o);
+  WT* rnn = reinterpret_cast<WT*>(sc + lo.rnn);
+  float* qb = reinterpret_cast<float*>(sc + lo.q);
+  float* cqb = reinterpret_cast<float*>(sc + lo.cq);
+  float* stop_c = reinterpret_cast<float*>(sc + lo.stop_c);
+
+  // this block's weight slices: into shared memory once (bf16), or in place (f32)
+  const int* row = p.table + (size_t)blockIdx.x * kTableCols;
+  const WT* region = static_cast<const WT*>(p.w) + row[0];
+  if (kResident) {
+    for (int idx = threadIdx.x; idx < row[1] / VEC; idx += kThreads)
+      cp_async16(ws + idx * VEC, region + idx * VEC);
+  }
+  const WT* wbase = kResident ? ws : region;
+  if (threadIdx.x < kNumMats) {
+    const int m = threadIdx.x;
+    const int* me = p.meta + m * kMetaCols;
+    Mat<WT> mt;
+    mt.K = me[0];
+    mt.ldw = me[1];
+    mt.width = me[2];
+    mt.bias = p.vec + me[3];
+    mt.ncols = me[4];
+    mt.scale = mt.bias + mt.ncols;
+    mt.u0 = row[2 + 3 * m];
+    mt.nu = row[3 + 3 * m];
+    mt.w = wbase + row[4 + 3 * m];
+    mats[m] = mt;
+  }
+
+  // h <- encoder finals, c <- 0, ys <- BOS (zero-padded), the stop logit's
+  // encoder_cell part: ec . w_stop[F:] + b_stop
   const size_t gtid = (size_t)blockIdx.x * kThreads + threadIdx.x;
   const size_t gstride = (size_t)gridDim.x * kThreads;
   for (size_t idx = gtid; idx < 2 * BF; idx += gstride) {
-    hbuf[idx] = p.h_init[idx];
-    cbuf[idx] = 0.f;
+    hw[idx] = from_f<WT>(p.h_init[idx]);
+    cw[idx] = from_f<WT>(0.f);
+    cf[idx] = 0.f;
   }
-  for (size_t idx = gtid; idx < (size_t)B * NM; idx += gstride) ys[idx] = p.bos[idx];
+  for (size_t idx = gtid; idx < (size_t)B * NMp; idx += gstride) {
+    const int r = (int)(idx / NMp), c = (int)(idx - (size_t)r * NMp);
+    ys[idx] = from_f<WT>(c < NM ? p.bos[(size_t)r * NM + c] : 0.f);
+  }
+  {
+    const int lane = threadIdx.x & 31;
+    const float* w_stop_e = p.vec + kVecHead;
+    for (int b = blockIdx.x * kWarps + (threadIdx.x >> 5); b < B; b += gridDim.x * kWarps) {
+      float s = 0.f;
+      for (int f = lane; f < F; f += 32) s = fmaf(p.ec[(size_t)b * F + f], w_stop_e[f], s);
+      s = warp_sum(s);
+      if (lane == 0) stop_c[b] = s + p.vec[2];
+    }
+  }
+  cp_async_wait_all();
+
   const bool timer = p.stage_ns != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
   unsigned long long t_last = timer ? global_ns() : 0ull;
-  unsigned long long acc_ns[7] = {0, 0, 0, 0, 0, 0, 0};
+  unsigned long long acc_ns[kNumStages] = {0, 0, 0, 0, 0, 0, 0};
   auto lap = [&](int slot) {
     if (timer) {
       const unsigned long long t = global_ns();
@@ -368,123 +590,102 @@ __global__ void __launch_bounds__(kThreads) ar_decode_kernel(Params p) {
       t_last = t;
     }
   };
-  grid_barrier(p.barrier);
+  unsigned int gen = 0;
+  grid_barrier(p.barrier, gen);  // also publishes mats[] and the shared weights
   lap(0);
 
-  for (int i = 0; i < p.M; ++i) {
-    float* hc = hbuf + (size_t)(i & 1) * 2 * BF;        // h at the step's start
-    float* hn = hbuf + (size_t)((i + 1) & 1) * 2 * BF;  // h at its end
+  for (int i = 0; i <= p.M; ++i) {
+    const WT* hc = hw + (size_t)(i & 1) * 2 * BF;  // h after step i-1
+    WT* hn = hw + (size_t)((i + 1) & 1) * 2 * BF;  // h after step i
 
-    // 1. prenet0, attention query, content query
+    // (A) fc_out -> ys, mel[i-1]; stop[i-1]; Q -> q_i; content_Q -> cq_i
     {
-      const int n0 = RT * cdiv(H, NT);
-      const int n1 = n0 + RT * cdiv(F, NT);
-      const int n2 = n1 + RT * cdiv(L, NT);
+      const Mat<WT>& m = mats[kQueryOut];
+      const Piece<WT> pcs[2] = {{hc, F, F}, {hc + BF, F, F}};
       const float* pos = p.pos + (size_t)i * F;
-      for (int t = blockIdx.x; t < n2; t += gridDim.x) {
-        int r0, c0;
-        if (t < n0) {
-          const float* red = gemm_tile<WT, BT>(ys, NM, NM, nullptr, 0, 0, w_pre0, H, B, t, smem, r0, c0);
-          for_tile<BT>(red, r0, c0, B, H, [&](int row, int col, float acc) {
-            pre0[(size_t)row * H + col] = sinf(acc + p.b_pre0[col]) * p.s_pre0[col];
-          });
-        } else if (t < n1) {
-          const float* red = gemm_tile<WT, BT>(hc, F, F, hc + BF, F, F, w_q, F, B, t - n0, smem, r0, c0);
-          for_tile<BT>(red, r0, c0, B, F, [&](int row, int col, float acc) {
-            qb[(size_t)row * F + col] = sinf(acc + p.b_q[col]) * p.s_q[col] + pos[col];
-          });
-        } else {
-          const float* red = gemm_tile<WT, BT>(cbuf, F, F, cbuf + BF, F, F, w_cq, L, B, t - n1, smem, r0, c0);
-          for_tile<BT>(red, r0, c0, B, L, [&](int row, int col, float acc) {
-            const float x = acc + p.b_cq[col];
-            cqb[(size_t)row * L + col] = x * sigmoid(x);
-          });
+      run_matrix<WT, RT>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int col, const float* s) {
+        if (col < F) {
+          if (i < p.M) qb[(size_t)r * F + col] = sinf(s[0] + m.bias[col]) * m.scale[col] + __ldg(pos + col);
+        } else if (i > 0) {
+          const int c = col - F;
+          if (c < NM) {
+            const float y = s[0] + m.bias[col];
+            ys[(size_t)r * NMp + c] = from_f<WT>(y);
+            p.mel[((size_t)(i - 1) * B + r) * NM + c] = y;
+          } else {
+            p.stop[(size_t)(i - 1) * B + r] = s[0] + stop_c[r];
+          }
         }
-      }
+      });
     }
-    grid_barrier(p.barrier);
+    if (i < p.M) {
+      const Mat<WT>& m = mats[kContentQuery];
+      const Piece<WT> pcs[2] = {{cw, F, F}, {cw + BF, F, F}};
+      run_matrix<WT, RT>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int col, const float* s) {
+        const float x = s[0] + m.bias[col];
+        cqb[(size_t)r * L + col] = x * sigmoid(x);
+      });
+    }
+    grid_barrier(p.barrier, gen);
+    if (i == p.M) {
+      lap(6);
+      break;
+    }
     lap(1);
 
-    // 2. prenet1; attention and content attention, one warp per batch row
+    // (B) prenet0; attention and content attention, one block per batch row
     {
-      const int n0 = RT * cdiv(H, NT);
-      const int n1 = n0 + cdiv(B, kWarps);
-      for (int t = blockIdx.x; t < n1; t += gridDim.x) {
-        if (t < n0) {
-          int r0, c0;
-          const float* red = gemm_tile<WT, BT>(pre0, H, H, nullptr, 0, 0, w_pre1, H, B, t, smem, r0, c0);
-          for_tile<BT>(red, r0, c0, B, H, [&](int row, int col, float acc) {
-            pre1[(size_t)row * H + col] = sinf(acc + p.b_pre1[col]) * p.s_pre1[col];
-          });
-        } else {
-          __syncthreads();  // shared memory may still hold this block's last tile
-          const int warp = threadIdx.x >> 5;
-          const int b = (t - n0) * kWarps + warp;
-          if (b < B) attend_row<WT>(p, i, b, qb, cqb, ob, rnn, smem + warp * wf);
-        }
-      }
+      const Mat<WT>& m = mats[kPrenet0];
+      const Piece<WT> pcs[1] = {{ys, NMp, NMp}};
+      run_matrix<WT, RT>(m, pcs, 1, B, xs, sl.x_elems, red, out, [&](int r, int col, const float* s) {
+        pre0[(size_t)r * H + col] = from_f<WT>(sinf(s[0] + m.bias[col]) * m.scale[col]);
+      });
+      for (int b = blockIdx.x; b < B; b += gridDim.x)
+        attend_row<WT>(p, i, b, qb, cqb, ob, rnn, reinterpret_cast<float*>(xs));
     }
-    grid_barrier(p.barrier);
+    grid_barrier(p.barrier, gen);
     lap(2);
 
-    // 3. attention projection + prenet -> rnn_in[:, L:]
+    // (C) rnn[:, L:] = prenet1(pre0) + attention_proj(o): unit j is the
+    // column pair (attention_proj j, prenet1 j)
     {
-      const int n0 = RT * cdiv(H, NT);
-      for (int t = blockIdx.x; t < n0; t += gridDim.x) {
-        int r0, c0;
-        const float* red = gemm_tile<WT, BT>(ob, F, F, nullptr, 0, 0, w_attn, H, B, t, smem, r0, c0);
-        for_tile<BT>(red, r0, c0, B, H, [&](int row, int col, float acc) {
-          rnn[(size_t)row * F + L + col] = __ldcg(pre1 + (size_t)row * H + col) + (acc + p.b_attn[col]);
-        });
-      }
+      const Mat<WT>& m = mats[kProjPrenet1];
+      const Piece<WT> pcs[2] = {{ob, F, F}, {pre0, H, H}};
+      run_matrix<WT, RT>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int j, const float* s) {
+        const float pre = sinf(s[1] + m.bias[2 * j + 1]) * m.scale[2 * j + 1];
+        rnn[(size_t)r * F + L + j] = from_f<WT>(pre + (s[0] + m.bias[2 * j]));
+      });
     }
-    grid_barrier(p.barrier);
+    grid_barrier(p.barrier, gen);
     lap(3);
 
-    // 4. LSTM layer 0 on [rnn_in | h0]
-    lstm_stage<WT, BT>(rnn, hc, w_l0, p.b_l0, cbuf, hn, B, F, smem);
-    grid_barrier(p.barrier);
-    lap(4);
-
-    // 5. LSTM layer 1 on [h0' | h1]
-    lstm_stage<WT, BT>(hn, hc + BF, w_l1, p.b_l1, cbuf + BF, hn + BF, B, F, smem);
-    grid_barrier(p.barrier);
-    lap(5);
-
-    // 6. next frame (fc_out) and stop logit from [h1', encoder_cell]
-    {
-      const int n0 = RT * cdiv(NM, NT);
-      const int n1 = n0 + RT;
-      for (int t = blockIdx.x; t < n1; t += gridDim.x) {
-        int r0, c0;
-        if (t < n0) {
-          const float* red = gemm_tile<WT, BT>(hn + BF, F, F, nullptr, 0, 0, w_out, NM, B, t, smem, r0, c0);
-          for_tile<BT>(red, r0, c0, B, NM, [&](int row, int col, float acc) {
-            const float y = acc + p.b_out[col];
-            ys[(size_t)row * NM + col] = y;
-            p.mel[((size_t)i * B + row) * NM + col] = y;
-          });
-        } else {
-          const float* red = gemm_tile<WT, BT>(hn + BF, F, F, p.ec, F, F, w_stop, 1, B, t - n0, smem, r0, c0);
-          for_tile<BT>(red, r0, c0, B, 1, [&](int row, int, float acc) {
-            p.stop[(size_t)i * B + row] = acc + p.b_stop[0];
-          });
-        }
-      }
+    // (D, E) the LSTM layers; unit u's gates i, f, g, o are its 4 columns
+    for (int layer = 0; layer < 2; ++layer) {
+      const Mat<WT>& m = mats[kLstm0 + layer];
+      const Piece<WT> pcs[2] = {{layer == 0 ? rnn : hn, F, F}, {hc + layer * BF, F, F}};
+      float* cl = cf + layer * BF;
+      WT* cwl = cw + layer * BF;
+      WT* hl = hn + layer * BF;
+      run_matrix<WT, RT>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int u, const float* s) {
+        const float* b = m.bias + 4 * u;
+        const size_t at = (size_t)r * F + u;
+        const float c = sigmoid(s[1] + b[1]) * __ldcg(cl + at) + sigmoid(s[0] + b[0]) * tanhf(s[2] + b[2]);
+        cl[at] = c;
+        cwl[at] = from_f<WT>(c);
+        hl[at] = from_f<WT>(sigmoid(s[3] + b[3]) * tanhf(c));
+      });
+      grid_barrier(p.barrier, gen);
+      lap(4 + layer);
     }
-    grid_barrier(p.barrier);
-    lap(6);
   }
   if (timer)
-    for (int k = 0; k < 7; ++k) p.stage_ns[k] += acc_ns[k];
+    for (int k = 0; k < kNumStages; ++k) p.stage_ns[k] += acc_ns[k];
 }
 
-template <typename WT, int BT>
+template <typename WT, int RT>
 int launch(const Params& p, cudaStream_t stream) {
-  auto kernel = ar_decode_kernel<WT, BT>;
-  const int gemm_floats = BT * max_k(p) + kWarps * BT * NT;
-  const int attn_floats = kWarps * warp_floats(p);
-  const size_t smem = sizeof(float) * (size_t)(gemm_floats > attn_floats ? gemm_floats : attn_floats);
+  auto kernel = ar_decode_kernel<WT, RT>;
+  const size_t smem = smem_layout<WT>(p, 8 * RT).total;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
@@ -494,44 +695,42 @@ int launch(const Params& p, cudaStream_t stream) {
   if (!coop) return kErrNoCooperativeLaunch;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (e != cudaSuccess) return e;
-  if (per_sm < 1) return kErrNoOccupancy;
-  const int grid = sms * (per_sm < 2 ? per_sm : 2);
+  if (per_sm < 1 || p.G > sms * per_sm) return kErrNoOccupancy;
   Params arg = p;
   void* args[] = {&arg};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kThreads), args,
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(p.G), dim3(kThreads), args,
                                   smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
+// 8 staged rows a pass up to B = 8, 32 above
 template <typename WT>
 int launch_for_batch(const Params& p, cudaStream_t stream) {
-  if (p.B <= 1) return launch<WT, 1>(p, stream);
-  if (p.B <= 2) return launch<WT, 2>(p, stream);
-  if (p.B <= 4) return launch<WT, 4>(p, stream);
-  if (p.B <= 8) return launch<WT, 8>(p, stream);
-  if (p.B <= 16) return launch<WT, 16>(p, stream);
-  return launch<WT, 32>(p, stream);
+  return p.B <= 8 ? launch<WT, 1>(p, stream) : launch<WT, 4>(p, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of f32 scratch the launch needs for these sizes.
-long long ar_decode_scratch_floats(int B, int F, int L, int NM) {
-  return (long long)B * (10LL * F + NM + L);
+// Bytes of scratch the launch needs for these sizes.
+long long ar_decode_scratch_bytes(int B, int F, int L, int NM, int weights_are_bf16) {
+  return (long long)scratch_layout(B, F, L, NM, weights_are_bf16 ? 2 : 4).total;
 }
 
-// ptrs: the kNumPtrs device pointers in Params order (h_init ... barrier);
-// dims: B, T, S, F, L, NM, M, weights_are_bf16. Launches on `stream` and
-// returns 0 or an error code for ar_decode_error_string.
+// ptrs: the kNumPtrs device pointers in Params order (h_init ... stage_ns,
+// which may be null); dims: B, T, S, F, L, NM, M, weights_are_bf16, G,
+// w_elems. Launches on `stream` and returns 0 or an error code for
+// ar_decode_error_string.
 int ar_decode_launch(void* const* ptrs, const int* dims, void* stream) {
   Params p;
   p.B = dims[0]; p.T = dims[1]; p.S = dims[2]; p.F = dims[3];
   p.L = dims[4]; p.NM = dims[5]; p.M = dims[6];
   const bool bf16 = dims[7] != 0;
-  if (p.B < 1 || p.T < 1 || p.S < 1 || p.M < 1 || p.F % 8 != 0 || p.L + p.F / 2 != p.F)
+  p.G = dims[8]; p.w_elems = dims[9];
+  if (p.B < 1 || p.T < 1 || p.S < 1 || p.M < 1 || p.G < 1 || p.F % 16 != 0 || p.L * 2 != p.F ||
+      p.F / (bf16 ? 8 : 4) > kThreads || nm_pad(p.NM) > 2 * p.F)
     return kErrBadShape;
   int i = 0;
   p.h_init = static_cast<const float*>(ptrs[i++]);
@@ -539,20 +738,14 @@ int ar_decode_launch(void* const* ptrs, const int* dims, void* stream) {
   p.ec = static_cast<const float*>(ptrs[i++]);
   p.bos = static_cast<const float*>(ptrs[i++]);
   p.pos = static_cast<const float*>(ptrs[i++]);
-  p.w_pre0 = ptrs[i++]; p.b_pre0 = static_cast<const float*>(ptrs[i++]); p.s_pre0 = static_cast<const float*>(ptrs[i++]);
-  p.w_pre1 = ptrs[i++]; p.b_pre1 = static_cast<const float*>(ptrs[i++]); p.s_pre1 = static_cast<const float*>(ptrs[i++]);
-  p.w_q = ptrs[i++]; p.b_q = static_cast<const float*>(ptrs[i++]); p.s_q = static_cast<const float*>(ptrs[i++]);
-  p.w_attn = ptrs[i++]; p.b_attn = static_cast<const float*>(ptrs[i++]);
-  p.w_cq = ptrs[i++]; p.b_cq = static_cast<const float*>(ptrs[i++]);
-  p.w_l0 = ptrs[i++]; p.b_l0 = static_cast<const float*>(ptrs[i++]);
-  p.w_l1 = ptrs[i++]; p.b_l1 = static_cast<const float*>(ptrs[i++]);
-  p.w_out = ptrs[i++]; p.b_out = static_cast<const float*>(ptrs[i++]);
-  p.w_stop = ptrs[i++]; p.b_stop = static_cast<const float*>(ptrs[i++]);
-  p.temps = static_cast<const float*>(ptrs[i++]);
+  p.w = ptrs[i++];
+  p.table = static_cast<const int*>(ptrs[i++]);
+  p.meta = static_cast<const int*>(ptrs[i++]);
+  p.vec = static_cast<const float*>(ptrs[i++]);
   p.mel = static_cast<float*>(ptrs[i++]);
   p.stop = static_cast<float*>(ptrs[i++]);
   p.attn = static_cast<float*>(ptrs[i++]);
-  p.scratch = static_cast<float*>(ptrs[i++]);
+  p.scratch = ptrs[i++];
   p.barrier = static_cast<unsigned int*>(ptrs[i++]);
   p.stage_ns = static_cast<unsigned long long*>(ptrs[i++]);
   if (i != kNumPtrs) return kErrBadShape;
@@ -561,18 +754,24 @@ int ar_decode_launch(void* const* ptrs, const int* dims, void* stream) {
 }
 
 int ar_decode_num_ptrs() { return kNumPtrs; }
-
-// Names of the stage_ns slots, comma-separated: each slot ends at a grid barrier.
-const char* ar_decode_stage_names() {
-  return "init,prenet0+Q+content_Q,prenet1+attention,attention_proj,lstm0,lstm1,fc_out+stop";
-}
 int ar_decode_num_dims() { return kNumDims; }
+
+// Names of the stage_ns slots, comma-separated; each slot ends at a grid
+// barrier. "init" and "last" occur once a launch, the others once a step.
+const char* ar_decode_stage_names() {
+  return "init,A fc_out+stop+Q+content_Q,B prenet0+attention,C prenet1+attention_proj,"
+         "D lstm0,E lstm1,last";
+}
 
 const char* ar_decode_error_string(int code) {
   switch (code) {
     case kErrNoCooperativeLaunch: return "device does not support cooperative launch";
-    case kErrNoOccupancy: return "kernel does not fit on one SM (shared memory or registers)";
-    case kErrBadShape: return "unsupported shapes (need F % 8 == 0 and latent == F / 2)";
+    case kErrNoOccupancy:
+      return "kernel does not fit: one block per SM for every row of the ownership table "
+             "(shared memory or registers)";
+    case kErrBadShape:
+      return "unsupported shapes (need ffn_hidden_dim % 16 == 0, at most 2048 (bf16) or 1024 "
+             "(f32), n_mels <= 2 * ffn_hidden_dim and content_latent_dim == ffn_hidden_dim / 2)";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

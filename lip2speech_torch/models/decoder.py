@@ -167,6 +167,7 @@ class Decoder(nn.Module):
         self.fc_out = LinearNorm(Fh, cfg.n_mels)
         self.stop_token_layer = LinearNorm(2 * Fh, 1)
         self.postnet = Postnet(cfg)
+        self._bias_sums: dict[int, tuple] = {}  # _lstm_bias's cache
 
     def ar_params(self) -> dict:
         """The AR loop's parameters in the JAX layout (``Decoder._ar_params``):
@@ -182,7 +183,7 @@ class Decoder(nn.Module):
             return {
                 "wx": getattr(rnn, f"weight_ih_l{layer}").t(),
                 "wh": getattr(rnn, f"weight_hh_l{layer}").t(),
-                "b": getattr(rnn, f"bias_ih_l{layer}") + getattr(rnn, f"bias_hh_l{layer}"),
+                "b": self._lstm_bias(layer),
             }
 
         return {
@@ -196,6 +197,23 @@ class Decoder(nn.Module):
             "lstm0": lstm(0), "lstm1": lstm(1),
             "fc_out": dense(self.fc_out), "stop": dense(self.stop_token_layer),
         }
+
+    def _lstm_bias(self, layer: int) -> torch.Tensor:
+        """bias_ih + bias_hh of the AR LSTM's layer, the same tensor until
+        either bias is replaced or written in place, so the AR kernel's
+        weight pack (keyed by tensor identity) stays cached across batches.
+        Summed afresh whenever autograd would record the sum."""
+        a = getattr(self.decoder_rnn, f"bias_ih_l{layer}")
+        b = getattr(self.decoder_rnn, f"bias_hh_l{layer}")
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return a + b
+        key = (a.data_ptr(), a._version, b.data_ptr(), b._version, a.dtype, a.device)
+        hit = self._bias_sums.get(layer)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, a + b, (a, b))  # holding a, b keeps their addresses unique
+            self._bias_sums[layer] = hit
+        return hit[1]
 
     def encode(self, encoder_outputs, face_features, gumbel=None, generator=None) -> dict:
         """Everything before the AR loop (decoder.py:381-424)."""

@@ -83,7 +83,7 @@ def test_cuda_wrapper_rejects_cpu_tensors(ar_inputs):
 
 @pytest.mark.parametrize("F", [128, 512])
 def test_lstm_column_order_groups_the_four_gates_of_8_units(F):
-    order = ar.lstm_column_order(F)
+    order = ar.lstm_column_order(F, 8)
     assert sorted(order.tolist()) == list(range(4 * F))
     tiles = order.reshape(-1, 4, 8)  # (tile, gate, unit)
     gate = tiles // F
@@ -93,6 +93,15 @@ def test_lstm_column_order_groups_the_four_gates_of_8_units(F):
     assert torch.equal(unit[:, 0, :].reshape(-1), torch.arange(F))
 
 
+@pytest.mark.parametrize("F", [128, 512])
+def test_lstm_column_order_of_single_units_is_unit_major(F):
+    """The kernel's order: column 4 u + g is gate g of hidden unit u."""
+    order = ar.lstm_column_order(F, 1)
+    u = torch.arange(F)[:, None]
+    g = torch.arange(4)[None, :]
+    assert torch.equal(order, (g * F + u).reshape(-1))
+
+
 def test_decode_positions_match_the_jax_table():
     from lip2speech_tpu.models.layers import positional_encoding
 
@@ -100,3 +109,135 @@ def test_decode_positions_match_the_jax_table():
     got = ar.decode_positions(tc, 20, "cpu").numpy()
     want = np.asarray(positional_encoding(max(tc.max_decoder_steps, 20), tc.ffn_hidden_dim)[:20])
     np.testing.assert_array_equal(got, want)
+
+
+def random_ar_params(cfg, seed: int) -> dict:
+    """AR parameters in the JAX layout (dense kernels (in, out), one LSTM
+    bias), seeded numpy values."""
+    rng = np.random.RandomState(seed)
+    F, L, NM = cfg.ffn_hidden_dim, cfg.content_latent_dim, cfg.n_mels
+    H = F // 2
+
+    def a(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    def dense(n_in, n_out):
+        return {"kernel": a(n_in, n_out), "bias": a(n_out)}
+
+    return {
+        "prenet0": dense(NM, H), "prenet0_w": a(H), "prenet1": dense(H, H), "prenet1_w": a(H),
+        "Q": dense(2 * F, F), "Q_w": a(F), "attention_proj": dense(F, H),
+        "content_Q": dense(2 * F, L), "content_temp": a(1), "temperature": a(1),
+        "lstm0": {"wx": a(F, 4 * F), "wh": a(F, 4 * F), "b": a(4 * F)},
+        "lstm1": {"wx": a(F, 4 * F), "wh": a(F, 4 * F), "b": a(4 * F)},
+        "fc_out": dense(F, NM), "stop": dense(2 * F, 1),
+    }
+
+
+def port_config(F: int):
+    from lip2speech_torch.config import ModelConfig
+
+    return ModelConfig(ffn_hidden_dim=F, content_latent_dim=F // 2)
+
+
+@pytest.mark.parametrize("n_blocks", [7, 132])
+@pytest.mark.parametrize("F", [128, 512])
+def test_pack_owns_every_column_exactly_once(F, n_blocks):
+    cfg = port_config(F)
+    pack = ar.pack_ar_weights(cfg, random_ar_params(cfg, F), torch.bfloat16, n_blocks)
+    table, meta = pack["table"], pack["meta"]
+    assert tuple(table.shape) == (n_blocks, ar.TABLE_COLS)
+    for m in range(len(ar.MATRICES)):
+        ncols, width = int(meta[m, 4]), int(meta[m, 2])
+        owned = torch.zeros(ncols // width, dtype=torch.int64)
+        for b in range(n_blocks):
+            u0, nu = int(table[b, 2 + 3 * m]), int(table[b, 3 + 3 * m])
+            owned[u0:u0 + nu] += 1
+        assert bool((owned == 1).all()), ar.MATRICES[m]
+    if n_blocks == 132 and F == 512:
+        # the resident slices fit a block's shared memory with room for staging
+        assert pack["w_elems"] * 2 <= 96 * 1024
+
+
+def unpack(cfg, pack: dict) -> dict[str, torch.Tensor]:
+    """The JAX-layout weights back from a pack, read from its table and meta
+    alone (an independent reading of the layout the kernel uses)."""
+    F, NM = cfg.ffn_hidden_dim, cfg.n_mels
+    w, table, meta, vec = pack["w"], pack["table"], pack["meta"], pack["vec"]
+    mats = []
+    for m in range(len(ar.MATRICES)):
+        K, ldw, width, off, ncols = (int(x) for x in meta[m])
+        W = torch.full((K, ncols), float("nan"), dtype=w.dtype)
+        for b in range(table.shape[0]):
+            u0, nu, at = (int(x) for x in table[b, 2 + 3 * m:5 + 3 * m])
+            start = int(table[b, 0]) + at
+            sl = w[start:start + nu * width * ldw].reshape(nu * width, ldw)
+            assert bool((sl[:, K:] == 0).all())
+            W[:, u0 * width:(u0 + nu) * width] = sl[:, :K].t()
+        mats.append((W, vec[off:off + ncols], vec[off + ncols:off + 2 * ncols]))
+    (qo, qo_b, qo_s), (cq, cq_b, _), (p0, p0_b, p0_s), (pp, pp_b, pp_s) = mats[:4]
+    assert bool((qo[:F, F:] == 0).all()) and bool((p0[NM:] == 0).all())
+    assert bool((pp[:F, 1::2] == 0).all()) and bool((pp[F:, 0::2] == 0).all())
+    out = {
+        "Q.kernel": qo[:, :F], "Q.bias": qo_b[:F], "Q_w": qo_s[:F],
+        "fc_out.kernel": qo[F:, F:F + NM], "fc_out.bias": qo_b[F:F + NM],
+        "stop.kernel": torch.cat([qo[F:, F + NM], vec[ar.VEC_HEAD:ar.VEC_HEAD + F].to(w.dtype)])[:, None],
+        "stop.bias": vec[2:3], "content_Q.kernel": cq, "content_Q.bias": cq_b,
+        "prenet0.kernel": p0[:NM], "prenet0.bias": p0_b, "prenet0_w": p0_s,
+        "attention_proj.kernel": pp[:F, 0::2], "attention_proj.bias": pp_b[0::2],
+        "prenet1.kernel": pp[F:, 1::2], "prenet1.bias": pp_b[1::2], "prenet1_w": pp_s[1::2],
+        "temperature": vec[0:1], "content_temp": vec[1:2],
+    }
+    for name, (W, bias, _) in zip(("lstm0", "lstm1"), mats[4:]):
+        # packed column 4 u + g is gate g of unit u; JAX's column is g F + u
+        W = W.reshape(2 * F, F, 4).permute(0, 2, 1).reshape(2 * F, 4 * F)
+        out[f"{name}.wx"], out[f"{name}.wh"] = W[:F], W[F:]
+        out[f"{name}.b"] = bias.reshape(F, 4).t().reshape(-1)
+    return out
+
+
+@pytest.mark.parametrize("n_blocks", [7, 132])
+@pytest.mark.parametrize("weight_dtype", [torch.float32, torch.bfloat16])
+def test_unpacking_returns_the_jax_layout_weights(ar_inputs, weight_dtype, n_blocks):
+    _, tc, _, p_t, _, _ = ar_inputs
+    got = unpack(tc, ar.pack_ar_weights(tc, p_t, weight_dtype, n_blocks))
+    want = {**ar._weights(p_t), "temperature": p_t["temperature"], "content_temp": p_t["content_temp"]}
+    assert set(got) == set(want)
+    for name, x in want.items():
+        x = x.reshape(got[name].shape)
+        if name in ("temperature", "content_temp"):  # used as they are, not rounded
+            expect = x.float()
+        elif got[name].dtype == weight_dtype:  # matrices, stored in the weight type
+            expect = x.to(weight_dtype)
+        else:  # biases and scales: f32 values rounded to the weight type
+            expect = x.to(weight_dtype).float()
+        assert got[name].dtype == expect.dtype and torch.equal(got[name], expect), name
+
+
+def test_packs_are_cached_until_a_weight_changes():
+    cfg = port_config(128)
+    p = random_ar_params(cfg, 3)
+    before = ar.packs
+    first = ar.packed_weights(cfg, p, torch.bfloat16, 7)
+    assert ar.packed_weights(cfg, p, torch.bfloat16, 7) is first
+    assert ar.packs == before + 1
+    p["Q"]["kernel"][0, 0] += 1.0  # written in place: a new version
+    edited = ar.packed_weights(cfg, p, torch.bfloat16, 7)
+    assert ar.packs == before + 2 and not torch.equal(edited["w"], first["w"])
+    p["fc_out"]["bias"] = p["fc_out"]["bias"] + 1.0  # replaced by a new tensor
+    assert ar.packed_weights(cfg, p, torch.bfloat16, 7) is not edited
+    assert ar.packs == before + 3
+
+
+def test_decoder_keeps_its_lstm_bias_between_calls():
+    from lip2speech_torch.models.decoder import Decoder
+
+    _, tc = small_configs()
+    dec = Decoder(tc)
+    with torch.no_grad():
+        b = dec.ar_params()["lstm0"]["b"]
+        assert dec.ar_params()["lstm0"]["b"] is b
+        dec.decoder_rnn.bias_ih_l0.add_(1.0)
+        b2 = dec.ar_params()["lstm0"]["b"]
+    assert b2 is not b
+    assert torch.equal(b2, dec.decoder_rnn.bias_ih_l0 + dec.decoder_rnn.bias_hh_l0)

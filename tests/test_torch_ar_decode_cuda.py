@@ -24,10 +24,8 @@ CFG = ModelConfig(ffn_hidden_dim=128, content_vocab_size=33, content_latent_dim=
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 3, 40])
-@pytest.mark.parametrize("weight_dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_version(B, weight_dtype):
+def decoder_inputs(B: int):
+    """A random small decoder on the card, its AR parameters and inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -39,7 +37,17 @@ def test_kernel_matches_plain_version(B, weight_dtype):
     face = torch.randn(B, CFG.face_embedding_dim, generator=gen).to(dev) * 0.3
     with torch.no_grad():
         enc = dec.encode(visual, face, generator=torch.Generator(device=dev).manual_seed(0))
-        p, bos = dec.ar_params(), dec.BOS.reshape(1, -1).expand(B, -1)
+        return dec.ar_params(), enc, dec.BOS.reshape(1, -1).expand(B, -1)
+
+
+# F = 128 leaves many of the card's blocks without columns of some matrix;
+# B = 3, 40 and 130 give ragged row chunks and more rows than one chunk
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 40, 130])
+@pytest.mark.parametrize("weight_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_version(B, weight_dtype):
+    p, enc, bos = decoder_inputs(B)
+    with torch.no_grad():
         want = ar.ar_decode_reference(CFG, p, enc, bos, CFG.max_decoder_steps, weight_dtype)
         before = ar.launches
         got = ar.ar_decode(CFG, p, enc, bos, CFG.max_decoder_steps, weight_dtype)
@@ -49,3 +57,14 @@ def test_kernel_matches_plain_version(B, weight_dtype):
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
     for g, w in zip(got[:2], want[:2]):
         assert float((g - w).abs().max()) < TOL[weight_dtype]
+
+
+@pytest.mark.cuda
+def test_unchanged_weights_are_packed_once():
+    p, enc, bos = decoder_inputs(4)
+    with torch.no_grad():
+        ar.ar_decode(CFG, p, enc, bos, CFG.max_decoder_steps)
+        packs = ar.packs
+        ar.ar_decode(CFG, p, enc, bos, CFG.max_decoder_steps)
+        torch.cuda.synchronize()
+    assert ar.packs == packs
