@@ -72,6 +72,7 @@ constexpr int kErrBadShape = 10003;
 constexpr int kNumPtrs = 18;
 constexpr int kNumDims = 10;
 constexpr unsigned long long kBarrierTimeoutNs = 4000000000ull;
+constexpr int kLoads = 8;  // loads an attention thread issues before it uses them
 
 // the packed matrices, in the order of the wrapper's MATRICES
 enum { kQueryOut = 0, kContentQuery, kPrenet0, kProjPrenet1, kLstm0, kLstm1 };
@@ -96,7 +97,7 @@ struct Params {
   float* stop;   // (M, B)
   float* attn;   // (M, B, T)
   void* scratch;
-  unsigned int* barrier;         // 2 zeroed words: arrivals, generation
+  unsigned int* barrier;         // one zeroed word: arrivals so far
   unsigned long long* stage_ns;  // null, or kNumStages slots of ns summed over steps
 };
 
@@ -242,33 +243,28 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   return v;
 }
 
-// Grid-wide barrier: a global arrival counter and a generation word. The
+// Grid-wide barrier on one global counter that only grows: each block adds
+// 1 with release order and waits, with acquire loads, until the count
+// reaches `target`, its number of barriers so far times the grid size. The
 // launch is cooperative, so every block is resident. A wait longer than
 // kBarrierTimeoutNs traps, which fails the launch with a CUDA error.
-__device__ void grid_barrier(unsigned int* bar, unsigned int& gen) {
+__device__ void grid_barrier(unsigned int* bar, unsigned int& target) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    ++gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicExch(bar + 1, gen);
-    } else {
-      unsigned long long start = 0;
-      unsigned polls = 0;
-      while (ld_acquire(bar + 1) != gen) {
-        if ((++polls & 1023u) == 0) {
-          const unsigned long long now = global_ns();
-          if (start == 0) {
-            start = now;
-          } else if (now - start > kBarrierTimeoutNs) {
-            __trap();
-          }
+    target += gridDim.x;
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(bar), "r"(1u) : "memory");
+    unsigned long long start = 0;
+    unsigned polls = 0;
+    while (ld_acquire(bar) < target) {
+      if ((++polls & 1023u) == 0) {
+        const unsigned long long now = global_ns();
+        if (start == 0) {
+          start = now;
+        } else if (now - start > kBarrierTimeoutNs) {
+          __trap();
         }
       }
     }
-    __threadfence();
   }
   __syncthreads();
 }
@@ -408,17 +404,24 @@ __device__ void attend_row(const Params& p, int i, int b, const float* q, const 
   const float ta = p.vec[0];
   for (int f = threadIdx.x; f < F; f += kThreads) qs[f] = __ldcg(q + (size_t)b * F + f) * ta;
   __syncthreads();
-  // warp w takes a contiguous run of F; lane t takes key t
+  // warp w takes a contiguous run of F; lane t takes key t and issues its
+  // loads kLoads at a time before using any
   const int v0 = nvF * warp / kWarps, v1 = nvF * (warp + 1) / kWarps;
   for (int t0 = 0; t0 < T; t0 += 32) {
     const int t = t0 + lane;
     if (t < T) {
       const WT* kr = kb + (size_t)t * F;
       float s = 0.f;
-      for (int v = v0; v < v1; ++v) {
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(kr + v * VEC));
+      for (int vb = v0; vb < v1; vb += kLoads) {
+        uint4 raw[kLoads];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) s = fmaf(qs[v * VEC + e], elem<WT>(raw, e), s);
+        for (int j = 0; j < kLoads; ++j)
+          if (vb + j < v1) raw[j] = __ldg(reinterpret_cast<const uint4*>(kr + (vb + j) * VEC));
+#pragma unroll
+        for (int j = 0; j < kLoads; ++j)
+          if (vb + j < v1)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) s = fmaf(qs[(vb + j) * VEC + e], elem<WT>(raw[j], e), s);
       }
       sp[warp * Tp + t] = s;
     }
@@ -456,11 +459,22 @@ __device__ void attend_row(const Params& p, int i, int b, const float* q, const 
       float acc[VEC];
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-      for (int t = g; t < T; t += ng) {
-        const float a = prob[t];
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(vb + (size_t)t * F + v * VEC));
+      for (int tb = g; tb < T; tb += ng * kLoads) {
+        uint4 raw[kLoads];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(a, elem<WT>(raw, e), acc[e]);
+        for (int j = 0; j < kLoads; ++j) {
+          const int t = tb + j * ng;
+          if (t < T) raw[j] = __ldg(reinterpret_cast<const uint4*>(vb + (size_t)t * F + v * VEC));
+        }
+#pragma unroll
+        for (int j = 0; j < kLoads; ++j) {
+          const int t = tb + j * ng;
+          if (t < T) {
+            const float a = prob[t];
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[e] = fmaf(a, elem<WT>(raw[j], e), acc[e]);
+          }
+        }
       }
 #pragma unroll
       for (int e = 0; e < VEC; ++e) op[g * F + v * VEC + e] = acc[e];
@@ -481,7 +495,19 @@ __device__ void attend_row(const Params& p, int i, int b, const float* q, const 
   __syncthreads();
   for (int s = warp; s < S; s += kWarps) {
     float d = 0.f;
-    for (int l = lane; l < L; l += 32) d = fmaf(qc[l], to_f(ckb[(size_t)s * L + l]), d);
+    for (int lb = lane; lb < L; lb += 32 * kLoads) {
+      float kv[kLoads];
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        const int l = lb + 32 * j;
+        kv[j] = l < L ? to_f(ckb[(size_t)s * L + l]) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        const int l = lb + 32 * j;
+        if (l < L) d = fmaf(qc[l], kv[j], d);
+      }
+    }
     d = warp_sum(d);
     if (lane == 0) csc[s] = d;
   }
@@ -498,6 +524,7 @@ __device__ void attend_row(const Params& p, int i, int b, const float* q, const 
   __syncthreads();
   for (int l = threadIdx.x; l < L; l += kThreads) {
     float acc = 0.f;
+#pragma unroll 4
     for (int s = 0; s < S; ++s) acc = fmaf(csc[s], to_f(cvb[(size_t)s * L + l]), acc);
     rnn[(size_t)b * F + l] = from_f<WT>(acc);
   }
@@ -590,8 +617,8 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
       t_last = t;
     }
   };
-  unsigned int gen = 0;
-  grid_barrier(p.barrier, gen);  // also publishes mats[] and the shared weights
+  unsigned int arrivals = 0;
+  grid_barrier(p.barrier, arrivals);  // also publishes mats[] and the shared weights
   lap(0);
 
   for (int i = 0; i <= p.M; ++i) {
@@ -626,7 +653,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
         cqb[(size_t)r * L + col] = x * sigmoid(x);
       });
     }
-    grid_barrier(p.barrier, gen);
+    grid_barrier(p.barrier, arrivals);
     if (i == p.M) {
       lap(6);
       break;
@@ -640,10 +667,11 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
       run_matrix<WT, RT>(m, pcs, 1, B, xs, sl.x_elems, red, out, [&](int r, int col, const float* s) {
         pre0[(size_t)r * H + col] = from_f<WT>(sinf(s[0] + m.bias[col]) * m.scale[col]);
       });
-      for (int b = blockIdx.x; b < B; b += gridDim.x)
+      // rows from the last block down: prenet0's columns are on the first half
+      for (int b = gridDim.x - 1 - blockIdx.x; b < B; b += gridDim.x)
         attend_row<WT>(p, i, b, qb, cqb, ob, rnn, reinterpret_cast<float*>(xs));
     }
-    grid_barrier(p.barrier, gen);
+    grid_barrier(p.barrier, arrivals);
     lap(2);
 
     // (C) rnn[:, L:] = prenet1(pre0) + attention_proj(o): unit j is the
@@ -656,7 +684,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
         rnn[(size_t)r * F + L + j] = from_f<WT>(pre + (s[0] + m.bias[2 * j]));
       });
     }
-    grid_barrier(p.barrier, gen);
+    grid_barrier(p.barrier, arrivals);
     lap(3);
 
     // (D, E) the LSTM layers; unit u's gates i, f, g, o are its 4 columns
@@ -674,7 +702,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
         cwl[at] = from_f<WT>(c);
         hl[at] = from_f<WT>(sigmoid(s[3] + b[3]) * tanhf(c));
       });
-      grid_barrier(p.barrier, gen);
+      grid_barrier(p.barrier, arrivals);
       lap(4 + layer);
     }
   }

@@ -226,8 +226,10 @@ def _even(n: int, blocks: range, n_blocks: int) -> tuple[list[int], list[int]]:
 def partition(cfg: ModelConfig, n_blocks: int) -> list[tuple[list[int], list[int]]]:
     """Which units of each matrix every block owns. Stage A's two matrices
     have inputs of their own, so they go to disjoint sets of blocks in
-    proportion to their columns (each block stages one input); every other
-    matrix is spread over all blocks."""
+    proportion to their columns (each block stages one input). prenet0 goes
+    to the first half of the blocks: the kernel hands stage B's attention
+    rows out from the last block down, so at small batch the two overlap.
+    The other matrices are spread over all blocks."""
     F, L, NM = cfg.ffn_hidden_dim, cfg.content_latent_dim, cfg.n_mels
     n_qo, n_cq = F + NM + 1, L
     every = range(n_blocks)
@@ -238,7 +240,7 @@ def partition(cfg: ModelConfig, n_blocks: int) -> list[tuple[list[int], list[int
         stage_a = [_even(n_qo, range(n_blocks - g_cq), n_blocks),
                    _even(n_cq, range(n_blocks - g_cq, n_blocks), n_blocks)]
     H = F // 2
-    return stage_a + [_even(H, every, n_blocks), _even(H, every, n_blocks),
+    return stage_a + [_even(H, range(max(1, n_blocks // 2)), n_blocks), _even(H, every, n_blocks),
                       _even(F, every, n_blocks), _even(F, every, n_blocks)]
 
 
@@ -377,7 +379,7 @@ def ar_decode_cuda(cfg: ModelConfig, p: dict, enc: dict, bos: torch.Tensor,
         attn = torch.empty((M, B, T), device=dev)
         bf16 = int(weight_dtype == torch.bfloat16)
         scratch = torch.empty(lib.ar_decode_scratch_bytes(B, F, L, NM, bf16), dtype=torch.uint8, device=dev)
-        barrier = torch.zeros(2, dtype=torch.int32, device=dev)
+        barrier = torch.zeros(1, dtype=torch.int32, device=dev)
         tensors = [
             vec(enc["hidden"]), mat(enc["k"]), mat(enc["v"]), mat(enc["content_key"]),
             mat(enc["content_value"]), vec(enc["encoder_cell"]), vec(bos),
