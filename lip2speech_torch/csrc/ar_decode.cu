@@ -34,9 +34,10 @@
 //   projection; (D) LSTM0; (E) LSTM1. The stop logit's encoder_cell part
 //   is constant over the steps and is computed once before the loop.
 // - A product stages row chunks of its input in shared memory with 16-byte
-//   cp.async copies, then runs FMA over register tiles (RT rows x 4 or 2
-//   column groups per lane) with K split over the 8 warps and one
-//   shared-memory reduction.
+//   cp.async copies and splits K over the 8 warps, which add their partial
+//   sums in shared memory. In bf16 each warp runs mma.sync m16n8k16 on
+//   ldmatrix fragments (a block's 16 LSTM columns are two n8 tiles); in f32
+//   it runs FMA over register tiles (4 rows x 4 or 2 column groups a lane).
 // - Attention takes one block per batch row: lanes run over the keys, each
 //   reading its key's slice with 16-byte loads, so no load waits on a
 //   shuffle; one block-wide softmax; the read runs over F with independent
@@ -44,7 +45,7 @@
 // - A grid barrier that waits more than ~4 s executes __trap(): the launch
 //   fails with a CUDA error at the next synchronisation instead of hanging
 //   the card or finishing with wrong outputs.
-// No tensor cores, TMA or warp specialisation yet.
+// No TMA, clusters or warp specialisation yet.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into a shared
 // library with a plain C interface (lip2speech_torch/kernels/ar_decode.py).
@@ -104,7 +105,7 @@ struct Params {
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int round_up(int a, int b) { return cdiv(a, b) * b; }
 __host__ __device__ constexpr size_t align_up(size_t a, size_t b) { return (a + b - 1) / b * b; }
-__host__ __device__ constexpr int nm_pad(int nm) { return round_up(nm, 8); }
+__host__ __device__ constexpr int nm_pad(int nm) { return round_up(nm, 16); }
 
 // Byte offsets of the launch's global scratch (activations and state).
 struct Scratch {
@@ -237,6 +238,22 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;
   asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
@@ -287,15 +304,83 @@ __device__ void stage_rows(WT* xs, int ldx, const Piece<WT>* pcs, int np, int r0
   __syncthreads();
 }
 
-// out[r * kRedLd + c] = sum_k xs[r][k] * w[c][k] for the RC = 8 * RT staged
-// rows and the tile's nc <= 4 * MC columns (w column-major, ldw apart).
-// Lane (rg, cg) of each warp holds rows rg + 8 j and columns cg + 4 m; the
-// warps split K and add their partial sums in shared memory.
-template <typename WT, int RT, int MC>
-__device__ void tile_product(const WT* xs, int ldx, int K, const WT* w, int ldw, int nc, float* red,
-                             float* out) {
+// Rows a product handles in one pass: mma tiles are 16 rows, FMA tiles 8
+// (RT = 1) or 32 (RT = 4).
+template <typename WT>
+__host__ __device__ constexpr int pass_rows(int RT) {
+  return sizeof(WT) == 2 ? (RT == 1 ? 16 : 32) : 8 * RT;
+}
+
+// Each warp's partial sums red[warp][r][c] -> out[r * kRedLd + c].
+template <int RC>
+__device__ __forceinline__ void reduce_warps(float* red, float* out) {
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < RC * kTileCols; idx += kThreads) {
+    const int r = idx / kTileCols, c = idx - r * kTileCols;
+    float s = 0.f;
+#pragma unroll
+    for (int g = 0; g < kWarps; ++g) s += red[(g * RC + r) * kRedLd + c];
+    out[r * kRedLd + c] = s;
+  }
+  __syncthreads();
+}
+
+// out[r * kRedLd + c] = sum_k xs[r][k] * w[c][k] for the RC staged rows and
+// the tile's nc <= 16 columns (w column-major, ldw apart); warps split K.
+// bf16 (weights in shared memory): per warp and k16 step, one ldmatrix.x4
+// of w (two n8 tiles) and one of xs per 16 rows, then mma.sync. Columns
+// past nc repeat column nc - 1; their sums are never read.
+template <typename WT, int RC>
+__device__ void tile_product_mma(const WT* xs, int ldx, int K, const WT* w, int ldw, int nc, float* red,
+                                 float* out) {
+  constexpr int MT = RC / 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const WT* bp = w + (size_t)min((lane & 7) + ((lane >> 4) << 3), nc - 1) * ldw + ((lane >> 3) & 1) * 8;
+  const WT* ap[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) ap[mt] = xs + (size_t)(mt * 16 + (lane & 15)) * ldx + (lane >> 4) * 8;
+  float acc[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  const int nk = K / 16;
+#pragma unroll 2
+  for (int ks = warp; ks < nk; ks += kWarps) {
+    unsigned b[4];
+    ldmatrix_x4(b, bp + ks * 16);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      unsigned a[4];
+      ldmatrix_x4(a, ap[mt] + ks * 16);
+      mma_bf16(acc[mt][0], a, b[0], b[1]);
+      mma_bf16(acc[mt][1], a, b[2], b[3]);
+    }
+  }
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float* r0 = red + (warp * RC + mt * 16 + g) * kRedLd + nt * 8 + 2 * t;
+      r0[0] = acc[mt][nt][0];
+      r0[1] = acc[mt][nt][1];
+      r0[8 * kRedLd] = acc[mt][nt][2];
+      r0[8 * kRedLd + 1] = acc[mt][nt][3];
+    }
+  reduce_warps<RC>(red, out);
+}
+
+// The same in f32 (weights read through L2): lane (rg, cg) of each warp
+// holds rows rg + 8 j and columns cg + 4 m of the tile, nc <= 4 * MC; the
+// sums of columns past 4 * MC are never read.
+template <typename WT, int RC, int MC>
+__device__ void tile_product_fma(const WT* xs, int ldx, int K, const WT* w, int ldw, int nc, float* red,
+                                 float* out) {
   constexpr int VEC = 16 / sizeof(WT);
-  constexpr int RC = 8 * RT;
+  constexpr int RT = RC / 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rg = lane >> 2, cg = lane & 3;
   const WT* wp[MC];
@@ -336,25 +421,16 @@ __device__ void tile_product(const WT* xs, int ldx, int K, const WT* w, int ldw,
   for (int j = 0; j < RT; ++j)
 #pragma unroll
     for (int m = 0; m < MC; ++m) red[(warp * RC + rg + 8 * j) * kRedLd + cg + 4 * m] = acc[j][m];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < RC * 4 * MC; idx += kThreads) {
-    const int r = idx / (4 * MC), c = idx - r * (4 * MC);
-    float s = 0.f;
-#pragma unroll
-    for (int g = 0; g < kWarps; ++g) s += red[(g * RC + r) * kRedLd + c];
-    out[r * kRedLd + c] = s;
-  }
-  __syncthreads();
+  reduce_warps<RC>(red, out);
 }
 
 // All rows of this block's columns of one matrix. The input rows are the
 // pieces side by side (K = the sum of their widths). Calls
 // epi(row, unit, sums) with the unit's `width` column sums.
-template <typename WT, int RT, typename Epi>
+template <typename WT, int RC, typename Epi>
 __device__ void run_matrix(const Mat<WT>& m, const Piece<WT>* pcs, int np, int B, WT* xs, int x_elems,
                            float* red, float* out, Epi epi) {
   constexpr int VEC = 16 / sizeof(WT);
-  constexpr int RC = 8 * RT;
   if (m.nu == 0) return;
   const int ldx = m.K + VEC;
   const int cap = (x_elems / ldx) / RC * RC;
@@ -367,10 +443,13 @@ __device__ void run_matrix(const Mat<WT>& m, const Piece<WT>* pcs, int np, int B
       for (int ut = 0; ut < m.nu; ut += upt) {
         const int nut = min(upt, m.nu - ut), nc = nut * m.width;
         const WT* w = m.w + (size_t)ut * m.width * m.ldw;
-        if (nc <= 8)
-          tile_product<WT, RT, 2>(xs + (size_t)rs * ldx, ldx, m.K, w, m.ldw, nc, red, out);
+        const WT* x = xs + (size_t)rs * ldx;
+        if constexpr (sizeof(WT) == 2)
+          tile_product_mma<WT, RC>(x, ldx, m.K, w, m.ldw, nc, red, out);
+        else if (nc <= 8)
+          tile_product_fma<WT, RC, 2>(x, ldx, m.K, w, m.ldw, nc, red, out);
         else
-          tile_product<WT, RT, 4>(xs + (size_t)rs * ldx, ldx, m.K, w, m.ldw, nc, red, out);
+          tile_product_fma<WT, RC, 4>(x, ldx, m.K, w, m.ldw, nc, red, out);
         for (int idx = threadIdx.x; idx < RC * nut; idx += kThreads) {
           const int r = idx / nut, u = idx - r * nut, row = r0 + rs + r;
           if (row < B) epi(row, m.u0 + ut + u, out + r * kRedLd + u * m.width);
@@ -531,13 +610,13 @@ __device__ void attend_row(const Params& p, int i, int b, const float* q, const 
   __syncthreads();  // the shared floats are free for the next row
 }
 
-template <typename WT, int RT>
+template <typename WT, int RC>
 __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
   constexpr int VEC = 16 / sizeof(WT);
   constexpr bool kResident = sizeof(WT) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Mat<WT> mats[kNumMats];
-  const Smem sl = smem_layout<WT>(p, 8 * RT);
+  const Smem sl = smem_layout<WT>(p, RC);
   WT* ws = reinterpret_cast<WT*>(smem + sl.w);
   WT* xs = reinterpret_cast<WT*>(smem + sl.x);
   float* red = reinterpret_cast<float*>(smem + sl.red);
@@ -630,7 +709,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
       const Mat<WT>& m = mats[kQueryOut];
       const Piece<WT> pcs[2] = {{hc, F, F}, {hc + BF, F, F}};
       const float* pos = p.pos + (size_t)i * F;
-      run_matrix<WT, RT>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int col, const float* s) {
+      run_matrix<WT, RC>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int col, const float* s) {
         if (col < F) {
           if (i < p.M) qb[(size_t)r * F + col] = sinf(s[0] + m.bias[col]) * m.scale[col] + __ldg(pos + col);
         } else if (i > 0) {
@@ -648,7 +727,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
     if (i < p.M) {
       const Mat<WT>& m = mats[kContentQuery];
       const Piece<WT> pcs[2] = {{cw, F, F}, {cw + BF, F, F}};
-      run_matrix<WT, RT>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int col, const float* s) {
+      run_matrix<WT, RC>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int col, const float* s) {
         const float x = s[0] + m.bias[col];
         cqb[(size_t)r * L + col] = x * sigmoid(x);
       });
@@ -664,7 +743,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
     {
       const Mat<WT>& m = mats[kPrenet0];
       const Piece<WT> pcs[1] = {{ys, NMp, NMp}};
-      run_matrix<WT, RT>(m, pcs, 1, B, xs, sl.x_elems, red, out, [&](int r, int col, const float* s) {
+      run_matrix<WT, RC>(m, pcs, 1, B, xs, sl.x_elems, red, out, [&](int r, int col, const float* s) {
         pre0[(size_t)r * H + col] = from_f<WT>(sinf(s[0] + m.bias[col]) * m.scale[col]);
       });
       // rows from the last block down: prenet0's columns are on the first half
@@ -679,7 +758,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
     {
       const Mat<WT>& m = mats[kProjPrenet1];
       const Piece<WT> pcs[2] = {{ob, F, F}, {pre0, H, H}};
-      run_matrix<WT, RT>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int j, const float* s) {
+      run_matrix<WT, RC>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int j, const float* s) {
         const float pre = sinf(s[1] + m.bias[2 * j + 1]) * m.scale[2 * j + 1];
         rnn[(size_t)r * F + L + j] = from_f<WT>(pre + (s[0] + m.bias[2 * j]));
       });
@@ -694,7 +773,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
       float* cl = cf + layer * BF;
       WT* cwl = cw + layer * BF;
       WT* hl = hn + layer * BF;
-      run_matrix<WT, RT>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int u, const float* s) {
+      run_matrix<WT, RC>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int u, const float* s) {
         const float* b = m.bias + 4 * u;
         const size_t at = (size_t)r * F + u;
         const float c = sigmoid(s[1] + b[1]) * __ldcg(cl + at) + sigmoid(s[0] + b[0]) * tanhf(s[2] + b[2]);
@@ -710,10 +789,10 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
     for (int k = 0; k < kNumStages; ++k) p.stage_ns[k] += acc_ns[k];
 }
 
-template <typename WT, int RT>
+template <typename WT, int RC>
 int launch(const Params& p, cudaStream_t stream) {
-  auto kernel = ar_decode_kernel<WT, RT>;
-  const size_t smem = smem_layout<WT>(p, 8 * RT).total;
+  auto kernel = ar_decode_kernel<WT, RC>;
+  const size_t smem = smem_layout<WT>(p, RC).total;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
@@ -732,10 +811,10 @@ int launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// 8 staged rows a pass up to B = 8, 32 above
+// one small row pass up to B = 8, 32 rows a pass above
 template <typename WT>
 int launch_for_batch(const Params& p, cudaStream_t stream) {
-  return p.B <= 8 ? launch<WT, 1>(p, stream) : launch<WT, 4>(p, stream);
+  return p.B <= 8 ? launch<WT, pass_rows<WT>(1)>(p, stream) : launch<WT, pass_rows<WT>(4)>(p, stream);
 }
 
 }  // namespace
@@ -757,7 +836,7 @@ int ar_decode_launch(void* const* ptrs, const int* dims, void* stream) {
   p.L = dims[4]; p.NM = dims[5]; p.M = dims[6];
   const bool bf16 = dims[7] != 0;
   p.G = dims[8]; p.w_elems = dims[9];
-  if (p.B < 1 || p.T < 1 || p.S < 1 || p.M < 1 || p.G < 1 || p.F % 16 != 0 || p.L * 2 != p.F ||
+  if (p.B < 1 || p.T < 1 || p.S < 1 || p.M < 1 || p.G < 1 || p.F % 32 != 0 || p.L * 2 != p.F ||
       p.F / (bf16 ? 8 : 4) > kThreads || nm_pad(p.NM) > 2 * p.F)
     return kErrBadShape;
   int i = 0;
@@ -798,7 +877,7 @@ const char* ar_decode_error_string(int code) {
       return "kernel does not fit: one block per SM for every row of the ownership table "
              "(shared memory or registers)";
     case kErrBadShape:
-      return "unsupported shapes (need ffn_hidden_dim % 16 == 0, at most 2048 (bf16) or 1024 "
+      return "unsupported shapes (need ffn_hidden_dim % 32 == 0, at most 2048 (bf16) or 1024 "
              "(f32), n_mels <= 2 * ffn_hidden_dim and content_latent_dim == ffn_hidden_dim / 2)";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

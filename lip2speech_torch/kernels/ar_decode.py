@@ -162,7 +162,7 @@ def lstm_column_order(F: int, units: int) -> torch.Tensor:
 # units of `width` output columns; a block owns a run of whole units.
 #   query_out      [h0 | h1] -> Q (F units), fc_out (n_mels), stop's h1 part (1)
 #   content_query  [c0 | c1] -> content_Q (L units)
-#   prenet0        ys (zero-padded to a multiple of 8) -> prenet0 (F/2 units)
+#   prenet0        ys (zero-padded to a multiple of 16) -> prenet0 (F/2 units)
 #   proj_prenet1   [o | pre0] -> unit j: attention_proj j, prenet1 j
 #   lstm0, lstm1   [x | h] -> unit u: gates i, f, g, o of hidden unit u
 MATRICES = ("query_out", "content_query", "prenet0", "proj_prenet1", "lstm0", "lstm1")
@@ -181,7 +181,7 @@ def _packed_matrices(cfg: ModelConfig, w: dict[str, torch.Tensor]):
     """(W (K, columns) in packed column order, unit width, bias, scale) of
     each of MATRICES, f32. Rows a column does not read are zero."""
     F, L, NM = cfg.ffn_hidden_dim, cfg.content_latent_dim, cfg.n_mels
-    H, NMp = F // 2, _round_up(NM, 8)
+    H, NMp = F // 2, _round_up(NM, 16)
     dev = w["Q.kernel"].device
 
     def zeros(*shape):
@@ -359,7 +359,7 @@ def ar_decode_cuda(cfg: ModelConfig, p: dict, enc: dict, bos: torch.Tensor,
         _check(tuple(enc[name].shape) == shape, f"enc[{name!r}] has shape {tuple(enc[name].shape)}, want {shape}")
         _check(enc[name].device == dev, f"enc[{name!r}] is on {enc[name].device}, want {dev}")
     _check(tuple(bos.shape) == (B, NM) and bos.device == dev, f"bos must be ({B}, {NM}) on {dev}")
-    _check(F % 16 == 0 and 2 * L == F, "need ffn_hidden_dim % 16 == 0 and content_latent_dim == ffn_hidden_dim / 2")
+    _check(F % 32 == 0 and 2 * L == F, "need ffn_hidden_dim % 32 == 0 and content_latent_dim == ffn_hidden_dim / 2")
     if stage_ns is not None:
         _check(stage_ns.dtype == torch.int64 and stage_ns.device == dev and stage_ns.is_contiguous(),
                f"stage_ns must be a contiguous int64 tensor on {dev}")
