@@ -38,10 +38,10 @@
 //   sums in shared memory. In bf16 each warp runs mma.sync m16n8k16 on
 //   ldmatrix fragments (a block's 16 LSTM columns are two n8 tiles); in f32
 //   it runs FMA over register tiles (4 rows x 4 or 2 column groups a lane).
-// - Attention takes one block per batch row: lanes run over the keys, each
-//   reading its key's slice with 16-byte loads, so no load waits on a
-//   shuffle; one block-wide softmax; the read runs over F with independent
-//   loads.
+// - Attention takes a whole block per batch row, and content attention
+//   another: lanes run over the keys, each reading its key's slice with
+//   16-byte loads, so no load waits on a shuffle; one block-wide softmax;
+//   the read runs over F with independent loads.
 // - A grid barrier that waits more than ~4 s executes __trap(): the launch
 //   fails with a CUDA error at the next synchronisation instead of hanging
 //   the card or finishing with wrong outputs.
@@ -138,7 +138,9 @@ __host__ __device__ inline Scratch scratch_layout(int B, int F, int L, int NM, i
 
 // shared floats of the attention stage (inside the staging area)
 __host__ __device__ inline int attn_floats(int F, int T, int L, int S, int vec) {
-  return F + (kWarps + 1) * round_up(T, 32) + kThreads * vec + L + round_up(S, 32);
+  const int enc = F + (kWarps + 1) * round_up(T, 32) + kThreads * vec;
+  const int content = L + round_up(S, 32);
+  return enc > content ? enc : content;
 }
 
 // Byte offsets of a block's dynamic shared memory.
@@ -426,10 +428,12 @@ __device__ void tile_product_fma(const WT* xs, int ldx, int K, const WT* w, int 
 
 // All rows of this block's columns of one matrix. The input rows are the
 // pieces side by side (K = the sum of their widths). Calls
-// epi(row, unit, sums) with the unit's `width` column sums.
-template <typename WT, int RC, typename Epi>
+// epi(row, unit, sums, pre(row, unit)) with the unit's `width` column sums;
+// pre's load is issued before the product, so its latency hides behind it.
+template <typename WT, int RC, typename Pre, typename Epi>
 __device__ void run_matrix(const Mat<WT>& m, const Piece<WT>* pcs, int np, int B, WT* xs, int x_elems,
-                           float* red, float* out, Epi epi) {
+                           float* red, float* out, Pre pre, Epi epi) {
+  static_assert(RC * kTileCols <= 2 * kThreads, "two epilogue items a thread");
   constexpr int VEC = 16 / sizeof(WT);
   if (m.nu == 0) return;
   const int ldx = m.K + VEC;
@@ -444,15 +448,22 @@ __device__ void run_matrix(const Mat<WT>& m, const Piece<WT>* pcs, int np, int B
         const int nut = min(upt, m.nu - ut), nc = nut * m.width;
         const WT* w = m.w + (size_t)ut * m.width * m.ldw;
         const WT* x = xs + (size_t)rs * ldx;
+        float pv[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int idx = threadIdx.x + j * kThreads, r = idx / nut, row = r0 + rs + r;
+          pv[j] = idx < RC * nut && row < B ? pre(row, m.u0 + ut + idx - r * nut) : 0.f;
+        }
         if constexpr (sizeof(WT) == 2)
           tile_product_mma<WT, RC>(x, ldx, m.K, w, m.ldw, nc, red, out);
         else if (nc <= 8)
           tile_product_fma<WT, RC, 2>(x, ldx, m.K, w, m.ldw, nc, red, out);
         else
           tile_product_fma<WT, RC, 4>(x, ldx, m.K, w, m.ldw, nc, red, out);
-        for (int idx = threadIdx.x; idx < RC * nut; idx += kThreads) {
-          const int r = idx / nut, u = idx - r * nut, row = r0 + rs + r;
-          if (row < B) epi(row, m.u0 + ut + u, out + r * kRedLd + u * m.width);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int idx = threadIdx.x + j * kThreads, r = idx / nut, u = idx - r * nut, row = r0 + rs + r;
+          if (idx < RC * nut && row < B) epi(row, m.u0 + ut + u, out + r * kRedLd + u * m.width, pv[j]);
         }
         __syncthreads();
       }
@@ -460,13 +471,12 @@ __device__ void run_matrix(const Mat<WT>& m, const Piece<WT>* pcs, int np, int B
   }
 }
 
-// Attention and content attention of batch row b at step i, on the whole
-// block. Writes attn[i, b], the attention read o[b] and rnn[b, :L].
+// Attention of batch row b at step i on the whole block: writes attn[i, b]
+// and the attention read o[b]. fs: attn_floats() shared floats.
 template <typename WT>
-__device__ void attend_row(const Params& p, int i, int b, const float* q, const float* cq, WT* o,
-                           WT* rnn, float* fs) {
+__device__ void attend(const Params& p, int i, int b, const float* q, WT* o, float* fs) {
   constexpr int VEC = 16 / sizeof(WT);
-  const int T = p.T, F = p.F, S = p.S, L = p.L;
+  const int T = p.T, F = p.F;
   const int Tp = round_up(T, 32);
   const int nvF = F / VEC;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -474,8 +484,6 @@ __device__ void attend_row(const Params& p, int i, int b, const float* q, const 
   float* sp = qs + F;               // [kWarps][Tp] partial scores
   float* prob = sp + kWarps * Tp;   // [Tp]
   float* op = prob + Tp;            // [kThreads * VEC] partial reads
-  float* qc = op + kThreads * VEC;  // [L]
-  float* csc = qc + L;              // [round_up(S, 32)]
 
   // encoder attention: the temperature scales q before the dot
   const WT* kb = static_cast<const WT*>(p.k) + (size_t)b * T * F;
@@ -565,8 +573,17 @@ __device__ void attend_row(const Params& p, int i, int b, const float* q, const 
     for (int g = 0; g < ng; ++g) s += op[g * F + f];
     o[(size_t)b * F + f] = from_f<WT>(s);
   }
+  __syncthreads();  // the shared floats are free for the next row
+}
 
-  // content attention over the S slots
+// Content attention of batch row b over the S codebook slots, queried by
+// the cell states, on the whole block: writes rnn[b, :L].
+template <typename WT>
+__device__ void attend_content(const Params& p, int b, const float* cq, WT* rnn, float* fs) {
+  const int F = p.F, S = p.S, L = p.L;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* qc = fs;      // [L]
+  float* csc = qc + L; // [round_up(S, 32)]
   const WT* ckb = static_cast<const WT*>(p.ck) + (size_t)b * S * L;
   const WT* cvb = static_cast<const WT*>(p.cv) + (size_t)b * S * L;
   const float tc = p.vec[1];
@@ -696,6 +713,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
       t_last = t;
     }
   };
+  const auto no_pre = [](int, int) { return 0.f; };
   unsigned int arrivals = 0;
   grid_barrier(p.barrier, arrivals);  // also publishes mats[] and the shared weights
   lap(0);
@@ -709,9 +727,10 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
       const Mat<WT>& m = mats[kQueryOut];
       const Piece<WT> pcs[2] = {{hc, F, F}, {hc + BF, F, F}};
       const float* pos = p.pos + (size_t)i * F;
-      run_matrix<WT, RC>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int col, const float* s) {
+      const auto pre = [&](int, int col) { return col < F && i < p.M ? __ldg(pos + col) : 0.f; };
+      run_matrix<WT, RC>(m, pcs, 2, B, xs, sl.x_elems, red, out, pre, [&](int r, int col, const float* s, float pc) {
         if (col < F) {
-          if (i < p.M) qb[(size_t)r * F + col] = sinf(s[0] + m.bias[col]) * m.scale[col] + __ldg(pos + col);
+          if (i < p.M) qb[(size_t)r * F + col] = sinf(s[0] + m.bias[col]) * m.scale[col] + pc;
         } else if (i > 0) {
           const int c = col - F;
           if (c < NM) {
@@ -727,7 +746,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
     if (i < p.M) {
       const Mat<WT>& m = mats[kContentQuery];
       const Piece<WT> pcs[2] = {{cw, F, F}, {cw + BF, F, F}};
-      run_matrix<WT, RC>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int col, const float* s) {
+      run_matrix<WT, RC>(m, pcs, 2, B, xs, sl.x_elems, red, out, no_pre, [&](int r, int col, const float* s, float) {
         const float x = s[0] + m.bias[col];
         cqb[(size_t)r * L + col] = x * sigmoid(x);
       });
@@ -739,16 +758,22 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
     }
     lap(1);
 
-    // (B) prenet0; attention and content attention, one block per batch row
+    // (B) prenet0; attention and content attention, a block per row and kind
     {
       const Mat<WT>& m = mats[kPrenet0];
       const Piece<WT> pcs[1] = {{ys, NMp, NMp}};
-      run_matrix<WT, RC>(m, pcs, 1, B, xs, sl.x_elems, red, out, [&](int r, int col, const float* s) {
+      run_matrix<WT, RC>(m, pcs, 1, B, xs, sl.x_elems, red, out, no_pre, [&](int r, int col, const float* s, float) {
         pre0[(size_t)r * H + col] = from_f<WT>(sinf(s[0] + m.bias[col]) * m.scale[col]);
       });
-      // rows from the last block down: prenet0's columns are on the first half
-      for (int b = gridDim.x - 1 - blockIdx.x; b < B; b += gridDim.x)
-        attend_row<WT>(p, i, b, qb, cqb, ob, rnn, reinterpret_cast<float*>(xs));
+      // 2B jobs (the rows' attention, then their content attention) from
+      // the last block down: prenet0's columns are on the first half
+      float* fs = reinterpret_cast<float*>(xs);
+      for (int j = gridDim.x - 1 - blockIdx.x; j < 2 * B; j += gridDim.x) {
+        if (j < B)
+          attend<WT>(p, i, j, qb, ob, fs);
+        else
+          attend_content<WT>(p, j - B, cqb, rnn, fs);
+      }
     }
     grid_barrier(p.barrier, arrivals);
     lap(2);
@@ -758,7 +783,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
     {
       const Mat<WT>& m = mats[kProjPrenet1];
       const Piece<WT> pcs[2] = {{ob, F, F}, {pre0, H, H}};
-      run_matrix<WT, RC>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int j, const float* s) {
+      run_matrix<WT, RC>(m, pcs, 2, B, xs, sl.x_elems, red, out, no_pre, [&](int r, int j, const float* s, float) {
         const float pre = sinf(s[1] + m.bias[2 * j + 1]) * m.scale[2 * j + 1];
         rnn[(size_t)r * F + L + j] = from_f<WT>(pre + (s[0] + m.bias[2 * j]));
       });
@@ -773,10 +798,12 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(Params p) {
       float* cl = cf + layer * BF;
       WT* cwl = cw + layer * BF;
       WT* hl = hn + layer * BF;
-      run_matrix<WT, RC>(m, pcs, 2, B, xs, sl.x_elems, red, out, [&](int r, int u, const float* s) {
+      // the cell state is prefetched: this block alone writes its units' c
+      const auto pre = [&](int r, int u) { return __ldcg(cl + (size_t)r * F + u); };
+      run_matrix<WT, RC>(m, pcs, 2, B, xs, sl.x_elems, red, out, pre, [&](int r, int u, const float* s, float c_old) {
         const float* b = m.bias + 4 * u;
         const size_t at = (size_t)r * F + u;
-        const float c = sigmoid(s[1] + b[1]) * __ldcg(cl + at) + sigmoid(s[0] + b[0]) * tanhf(s[2] + b[2]);
+        const float c = sigmoid(s[1] + b[1]) * c_old + sigmoid(s[0] + b[0]) * tanhf(s[2] + b[2]);
         cl[at] = c;
         cwl[at] = from_f<WT>(c);
         hl[at] = from_f<WT>(sigmoid(s[3] + b[3]) * tanhf(c));
