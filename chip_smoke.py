@@ -6,12 +6,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 1. build the hand-written CUDA kernel(s) from ``lip2speech_torch/csrc``;
 2. hold the AR-decode kernel against its plain PyTorch version at the
    default widths and 300 steps, B in {1, 4, 8, 64, 256}, with f32 weights
-   (TF32 off) and with bf16 weights, and time both with CUDA events;
+   (TF32 off) and with bf16 weights, and time both with CUDA events; print
+   the kernel's per-stage times (its stage timer) at B=4 and B=256, bf16;
 3. drive the port's inference path (random weights from a seeded
    ``torch.Generator``, default Config, bf16): B=4 requests of 29 mouth
    frames and two face crops -> waveform, counting the kernel's launches;
    check one f32 request on the GPU against the same request on the CPU;
-   time a batch at B=4 and B=256; run one long video of about 3 chunks.
+   time a batch at B=4 and B=256, checking that the kernel's weights are
+   not packed again; run one long video of about 3 chunks.
 
 Timings print with the card's name and power limit. The line before the
 last is a JSON object listing each kernel; the last line is

@@ -37,7 +37,9 @@
 //   cp.async copies and splits K over the 8 warps, which add their partial
 //   sums in shared memory. In bf16 each warp runs mma.sync m16n8k16 on
 //   ldmatrix fragments (a block's 16 LSTM columns are two n8 tiles); in f32
-//   it runs FMA over register tiles (4 rows x 4 or 2 column groups a lane).
+//   it runs FMA over register tiles (1 or 4 rows x 4 or 2 column groups a
+//   lane). An epilogue's own operand (the cell state, the position row) is
+//   loaded before the product, so its latency hides behind it.
 // - Attention takes a whole block per batch row, and content attention
 //   another: lanes run over the keys, each reading its key's slice with
 //   16-byte loads, so no load waits on a shuffle; one block-wide softmax;
