@@ -13,19 +13,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    frames and two face crops -> waveform, counting the kernel's launches;
    check one f32 request on the GPU against the same request on the CPU;
    time a batch at B=4 and B=256, checking that the kernel's weights are
-   not packed again; run one long video of about 3 chunks.
+   not packed again; run one long video of about 3 chunks;
+4. train: the training step at full width (default Config, bf16 policy,
+   B=64, 29 mouth frames, two 160x160 face crops through the frozen face
+   net, M=80, tf_ratio 0.5): a seeded batch through ``collate`` on the host
+   and ``prepare_batch`` on the card; three steps (finite losses, no
+   skipped step, trainable weights moved, the face net bit-identical, the
+   step count); the median time of 5 steps with the peak memory; one B=4
+   inference on the trained weights, which must pack the AR weights again
+   exactly once and agree with the plain decode; one f32 step on the GPU
+   against the same step on the CPU, both held against an f64 step (B=2,
+   same draws).
 
 Timings print with the card's name and power limit. The line before the
 last is a JSON object listing each kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 
-Usage: python3 chip_smoke.py [--profile | --kernel-only]
+Usage: python3 chip_smoke.py [--profile | --kernel-only | --train-only]
 
-``--profile`` adds, for each timed batch, the device time by kernel of one
-batch (torch.profiler) and the device's idle share. ``--kernel-only`` runs
-phases 1 and 2 alone at B in {4, 256} (with the per-stage times) and prints
-no result line.
+``--profile`` adds, for each timed batch and for a train step, the device
+time by kernel of one batch (torch.profiler) and the device's idle share.
+``--kernel-only`` runs phases 1 and 2 alone at B in {4, 256} (with the
+per-stage times) and prints no result line; ``--train-only`` runs phases 1
+and 4 and prints no result line.
 """
 
 from __future__ import annotations
@@ -62,6 +73,29 @@ TOL = {"float32": (1e-4, 1e-4, 2e-3), "bfloat16": (5e-3, 5e-3, 0.15)}
 # f32 pipeline on the GPU vs the CPU (cuDNN convs with TF32 off, the kernel
 # vs the plain loop, postnet): mel_postnet within 2e-2 absolute
 E2E_MEL_TOL = 2e-2
+# phase 4, training: the recipe batch (bench.py:65), tf_ratio of bench.py:247
+TRAIN_B = 64
+TRAIN_STEPS = 3
+TRAIN_TIMED = 5
+TRAIN_TF = 0.5
+# one f32 train step (TF32 off) on the GPU vs the same step on the CPU, same
+# weights, batch and draws, B=2 at full width, both held against an f64 step
+# on the CPU. Each of the GPU's losses, gradients and new BatchNorm
+# statistics must be as close to the f64 value as the CPU's f32 one, within
+# a factor TRAIN_F32_FACTOR, plus TRAIN_REL of the tensor's max (a loss: of
+# itself) and TRAIN_FLOOR of the largest value of its kind (for tensors that
+# are 0 up to rounding, such as the gradients of conv biases in front of a
+# train-mode BatchNorm). The video encoder's gradients get TRAIN_ENCODER_REL
+# of the tensor's max instead of TRAIN_REL: at these random weights its f32
+# backward is ill-conditioned (measured on the CPU: the cotangent reaching
+# the encoder is 2e-3 off its f64 value after the 80-step loop's backward,
+# and the ShuffleNet's BatchNorms carry that to ~1.5e-2 of a unit's
+# gradient and up to 4e-2 of a tensor's max), and cuDNN's f32 convolution
+# algorithms round differently from the CPU's.
+TRAIN_F32_FACTOR = 4.0
+TRAIN_REL = 1e-4
+TRAIN_ENCODER_REL = 0.1
+TRAIN_FLOOR = 1e-6
 
 
 def fail(msg: str):
@@ -259,9 +293,10 @@ def serve(model, cfg, video, faces, gen, gumbel=None, theta=None, compute_dtype=
     return out, wav
 
 
-def print_profile(fn, B: int, card: str, top: int = 8):
+def print_profile(fn, B: int, card: str, top: int = 8, ranges: str | None = None):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device's idle share of the call's wall time."""
+    the device's idle share of the call's wall time; with ``ranges``, also
+    the host time of the profiler ranges whose names start with it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -271,13 +306,21 @@ def print_profile(fn, B: int, card: str, top: int = 8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    # a profiler range also shows on the device's timeline: keep kernels only
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not (ranges and e.key.startswith(ranges))]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"profile B={B}: wall {wall_ms:.2f} ms (profiled), device busy {busy_ms:.2f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f} [{card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{e.count:<5d} {e.key[:90]}")
+    if ranges:
+        launches = sum(e.count for e in kernels)
+        parts = ", ".join(f"{e.key} {e.cpu_time_total / 1e3:.2f} ms" for e in events
+                          if e.key.startswith(ranges) and e.device_type == torch.autograd.DeviceType.CPU)
+        print(f"  host time by range: {parts}; {launches} kernel launches")
 
 
 def phase_pipeline(cfg, card: str, dev, timed_batches=TIMED_BATCHES, profile=False) -> int:
@@ -366,6 +409,190 @@ def phase_pipeline(cfg, card: str, dev, timed_batches=TIMED_BATCHES, profile=Fal
     return launches
 
 
+def make_train_batch(cfg, B: int, seed: int, device):
+    """A seeded batch as a data loader hands it over: uint8 mouth and face
+    crops and audio clips of random lengths up to ``max_audio_samples``,
+    through ``collate`` on the host and ``prepare_batch`` on ``device``."""
+    import numpy as np
+
+    from lip2speech_torch.data.collate import collate, prepare_batch, to_device
+
+    d = cfg.data
+    rng = np.random.RandomState(seed)
+    samples = [{
+        "mouth": rng.randint(0, 256, (d.max_video_frames, *d.mouth_size, 3), dtype=np.uint8),
+        "faces": rng.randint(0, 256, (d.n_face_crops, *d.face_size, 3), dtype=np.uint8),
+        "audio": (rng.randn(rng.randint(d.max_audio_samples // 2, d.max_audio_samples + 1))
+                  * 0.1).astype(np.float32),
+    } for _ in range(B)]
+    return prepare_batch(to_device(collate(samples, d), device), cfg.audio, d)
+
+
+def make_draws(mcfg, B: int, T: int, M: int, video_dim: int, gen) -> dict:
+    """Every random draw of a teacher-forced train-mode forward, on the CPU
+    from ``gen``, so two devices can be handed the same draws."""
+    import torch
+
+    from lip2speech_torch.models.layers import keep_mask
+
+    S = min(T // k if T >= k else 1 for k in (1, 3, 5, 7))  # content codebook slots
+    Fh = mcfg.ffn_hidden_dim
+    u = torch.rand(B * S, mcfg.content_vocab_size, generator=gen).clamp(min=1e-30)
+    chans = [mcfg.postnet_embedding_dim] * (mcfg.postnet_n_convolutions - 1) + [mcfg.n_mels]
+    return {
+        "gumbel": -torch.log(-torch.log(u)),
+        "teacher": torch.rand(M, generator=gen),
+        "prenet": keep_mask((M, B, Fh // 2), mcfg.prenet_dropout, gen, "cpu"),
+        "attention": keep_mask((M, B, T), mcfg.attention_dropout, gen, "cpu"),
+        "rnn": keep_mask((M, B, Fh), mcfg.decoder_rnn_dropout, gen, "cpu"),
+        "postnet": [keep_mask((B, c, M), mcfg.postnet_dropout, gen, "cpu") for c in chans],
+        "encoder": keep_mask((B, T, video_dim), mcfg.encoder_feature_dropout, gen, "cpu"),
+    }
+
+
+def train_gpu_vs_cpu(cfg, cpu_model, dev):
+    """One f32 step's losses, gradients and new BatchNorm statistics on the
+    GPU against the CPU, both against an f64 step on the CPU (same weights,
+    batch and draws); fails beyond the tolerance stated at the top."""
+    import dataclasses
+
+    import torch
+
+    from lip2speech_torch.train.train_step import create_train_state, loss_and_grad
+
+    cfg32 = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, bf16=False))
+    B, T = 2, cfg.data.max_video_frames
+    batch = make_train_batch(cfg, B, SEED + 1, "cpu")
+    draws = make_draws(cfg.model, B, T, batch["mel"].shape[-1], cpu_model.encoder.output_dim,
+                       torch.Generator().manual_seed(SEED + 2))
+
+    def run(device, dtype):
+        model = copy.deepcopy(cpu_model).to(device, dtype)
+        state = create_train_state(cfg32, model)
+
+        def put(x):
+            x = x.to(device)
+            return x.to(dtype) if x.is_floating_point() else x
+
+        b = {k: put(v) for k, v in batch.items()}
+        d = {k: [put(m) for m in v] if isinstance(v, list) else put(v) for k, v in draws.items()}
+        losses, stats, grads = loss_and_grad(state, b, TRAIN_TF, cfg32, d)
+        grads = dict(zip(state.opt.names, grads))
+        return [{k: v.detach().double().cpu() for k, v in part.items()}
+                for part in (losses, stats, grads)]
+
+    ref, cpu, gpu = run("cpu", torch.float64), run("cpu", torch.float32), run(dev, torch.float32)
+    worst = []
+    for part, kind in enumerate(("losses", "BN statistics", "gradients")):
+        top = max(float(v.abs().max()) for v in ref[part].values())
+        ratio, name = max(
+            (float((gpu[part][k] - r).abs().max())
+             / (TRAIN_F32_FACTOR * float((cpu[part][k] - r).abs().max())
+                + (TRAIN_ENCODER_REL if kind == "gradients" and k.startswith("encoder.")
+                   else TRAIN_REL) * float(r.abs().max()) + TRAIN_FLOOR * top), k)
+            for k, r in ref[part].items())
+        worst.append(ratio)
+        print(f"train f32 step B={B}, against f64 on the CPU: {kind} ({len(ref[part])}): the "
+              f"GPU's error is at most {ratio:.3f} of its tolerance ({name}: GPU "
+              f"{float((gpu[part][name] - ref[part][name]).abs().max()):.3e}, CPU f32 "
+              f"{float((cpu[part][name] - ref[part][name]).abs().max()):.3e}, max "
+              f"{float(ref[part][name].abs().max()):.3e})")
+    if max(worst) > 1.0:
+        fail("the f32 train step on the GPU disagrees with the CPU")
+
+
+def phase_train(cfg, card: str, dev, batch_size: int = TRAIN_B, timed: int = TRAIN_TIMED,
+                profile: bool = False):
+    """The port's training step at full width (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from lip2speech_torch.kernels import ar_decode as ar
+    from lip2speech_torch.models.lip2speech import Lip2Speech, init_random_
+    from lip2speech_torch.train.train_step import create_train_state, train_step
+
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    cpu_model = init_random_(Lip2Speech(cfg.model), torch.Generator().manual_seed(SEED))
+    model = copy.deepcopy(cpu_model).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # one inference on the untrained weights packs them for the AR kernel
+    video4, faces4 = make_request(cfg, MAIN_B, gen, dev, torch.float32)
+    model(video4, faces4, generator=gen)
+
+    state = create_train_state(cfg, model)
+    batch = make_train_batch(cfg, batch_size, SEED, dev)
+    face_before = {k: v.clone() for k, v in model.state_dict().items() if k.startswith("vgg_face.")}
+    # matrices and kernels: every one has a gradient at these shapes
+    trained_before = {n: p.detach().clone() for n, p in zip(state.opt.names, state.opt.params)
+                      if p.ndim >= 2}
+    history = [train_step(state, batch, TRAIN_TF, cfg) for _ in range(TRAIN_STEPS)]
+    sync()
+    for i, m in enumerate(history):
+        print(f"train step {i}: " + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
+        if not all(bool(torch.isfinite(v).all()) for v in m.values()) or int(m["notfinite_count"]):
+            fail(f"train step {i} gave a non-finite loss or skipped its update")
+    params = dict(model.named_parameters())
+    moved = sum(not torch.equal(v, params[k].detach()) for k, v in trained_before.items())
+    face_same = all(torch.equal(v, model.state_dict()[k]) for k, v in face_before.items())
+    print(f"train: {moved} of {len(trained_before)} trainable matrices moved, face net "
+          f"{'bit-identical' if face_same else 'CHANGED'} ({len(face_before)} tensors), "
+          f"step {state.step}")
+    if moved < len(trained_before) or not face_same or state.step != TRAIN_STEPS:
+        fail("the train steps did not move the model as they should")
+    del trained_before, face_before
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        m = train_step(state, batch, TRAIN_TF, cfg)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else float("nan")
+    print(f"train B={batch_size} bf16: {ms:.2f} ms per step (median of {timed}: "
+          f"{[round(t, 2) for t in times]}), {batch_size / ms * 1e3:.1f} clips/s, "
+          f"peak memory {peak:.2f} GiB [{card}]")
+    if not bool(torch.isfinite(m["total"])):
+        fail("a timed train step gave a non-finite loss")
+    if profile and cuda:
+        print_profile(lambda: train_step(state, batch, TRAIN_TF, cfg), batch_size, card, top=12,
+                      ranges="train.")
+
+    # inference on the trained weights: the AR kernel must see them
+    model.eval()
+    packs = ar.packs
+    with torch.no_grad():
+        out = model(video4, faces4, generator=gen)
+        sync()
+        repacked = ar.packs - packs
+        dec = model.decoder
+        feats = model.encoder(video4)
+        emb = model.vgg_face.inference(faces4[:, 0].permute(0, 3, 1, 2))
+        visual = torch.cat([feats, emb[:, None].expand(-1, feats.shape[1], -1)], -1)
+        enc = dec.encode(visual, emb, generator=gen)
+        p, bos = dec.ar_params(), dec.BOS.reshape(1, -1).expand(MAIN_B, -1)
+        M = cfg.model.max_decoder_steps
+        ref = ar.ar_decode_reference(cfg.model, p, enc, bos, M, torch.float32)
+        got = ar.ar_decode(cfg.model, p, enc, bos, M, torch.float32)
+        sync()
+    errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+    len_ok, _, _ = lengths_check(ref[1], got[1], cfg.model.gate_threshold)
+    print(f"inference on the trained weights (B={MAIN_B}, f32): AR weights packed {repacked} "
+          f"time(s); kernel vs plain max|err| mel {errs[0]:.3e} stop {errs[1]:.3e} "
+          f"attn {errs[2]:.3e} (tol {TOL['float32']}), lengths {out['lengths'].tolist()}")
+    if repacked != 1 or not len_ok or any(e > t for e, t in zip(errs, TOL["float32"])):
+        fail("inference after training did not decode with the trained weights")
+
+    train_gpu_vs_cpu(cfg, cpu_model, dev)
+
+
 def main() -> int:
     try:
         import torch
@@ -386,12 +613,18 @@ def main() -> int:
     card = card_line()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build(card)
+    profile = "--profile" in sys.argv[1:]
     if "--kernel-only" in sys.argv[1:]:
         phase_kernel(cfg, card, dev, batches=TIMED_BATCHES)
         print(card)
         return 0
+    if "--train-only" in sys.argv[1:]:
+        phase_train(cfg, card, dev, profile=profile)
+        print(card)
+        return 0
     results = phase_kernel(cfg, card, dev)
-    launches = phase_pipeline(cfg, card, dev, profile="--profile" in sys.argv[1:])
+    launches = phase_pipeline(cfg, card, dev, profile=profile)
+    phase_train(cfg, card, dev, profile=profile)
 
     at_main = results[(MAIN_B, "bfloat16")]
     kernels = [{

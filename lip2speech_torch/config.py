@@ -2,8 +2,8 @@
 
 The port's own copy of the dataclasses that ``lip2speech_tpu/config.py``
 defines, with the same defaults, so one ``Config`` value describes the same
-model to both packages. Only the sections the inference path reads are
-kept: audio, model and data.
+model to both packages. The sections the port reads are kept: audio,
+model, data and train.
 """
 
 from __future__ import annotations
@@ -88,15 +88,52 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimisation (reference hparams.py:77-85, train.py:88-160). The
+    fields and defaults of the JAX package's ``TrainConfig``; the schedule,
+    logging and adversarial fields are kept so one override string serves
+    both packages."""
+
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-6
+    grad_clip: float = 1.0
+    batch_size: int = 64
+    seed: int = 1234
+    max_iters: int = 6_400_000
+    eval_interval: int = 2000
+    log_interval: int = 50
+    tf_ratio_start: float = 0.1
+    tf_ratio_step: float = 0.1
+    tf_ratio_epochs: int = 10
+    postnet_loss_weight: float = 10.0
+    # weight of the content-quantiser KLD term in the total (the logged
+    # KLD stays unweighted)
+    kld_weight: float = 1.0
+    # forward on bf16 copies of f32 master weights
+    bf16: bool = True
+    # mel MSE over valid frames only; False averages over padding too, as
+    # the reference does
+    masked_loss: bool = False
+    # skip (zero) an update with a non-finite gradient, never give up
+    skip_nonfinite_updates: bool = True
+    max_consecutive_nonfinite: int = 100
+    # skip an update whose raw global gradient norm exceeds this; 0 = off
+    reject_grad_norm_above: float = 0.0
+    adversarial: bool = False
+    adversarial_critic_lr: float = 5e-5
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     audio: AudioConfig = dataclasses.field(default_factory=AudioConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
 def config_with_overrides(*overrides: str) -> Config:
     """Build a Config with dotted-path overrides, e.g.
-    ``config_with_overrides("model.ffn_hidden_dim=256")``."""
+    ``config_with_overrides("train.learning_rate=3e-4", "model.ffn_hidden_dim=256")``."""
     cfg = Config()
     groups: dict[str, dict] = {}
     for ov in overrides:

@@ -1,12 +1,19 @@
-"""Autoregressive mel decoder, inference forward (PyTorch).
+"""Autoregressive mel decoder (PyTorch).
 
 Counterpart of ``lip2speech_tpu/models/decoder.py`` with the reference
 module names: the face-conditioned BiLSTM encoder, the K/V multi-kernel
-conv banks, the gumbel content codebook, the free-running AR loop and the
-postnet. The AR loop is ``kernels.ar_decode``: the CUDA kernel on the GPU,
-its plain step loop on the CPU. Inference only: eval-mode BatchNorm, no
-dropout, no teacher forcing (the teacher-forced training forward belongs
-to the training port).
+conv banks, the gumbel content codebook, the AR loop and the postnet.
+
+Two forwards, as in the JAX ``Decoder.__call__``:
+
+- free-running inference (``mels=None``): eval-mode BatchNorm, no dropout;
+  the AR loop is ``kernels.ar_decode``, the CUDA kernel on the GPU and its
+  plain step loop on the CPU;
+- teacher-forced (``mels`` given, ``decoder.py:426-518``): a plain PyTorch
+  step loop over the scan step (``_build_step``, ``decoder.py:230-313``)
+  with autograd through it. In train mode its BatchNorms train by flax's
+  rule and dropout applies; every random draw is an input (``draws``) or
+  comes from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -20,8 +27,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from lip2speech_torch.config import ModelConfig
-from lip2speech_torch.kernels.ar_decode import ar_decode
-from lip2speech_torch.models.layers import ConvNorm, LinearNorm, PSine, sinusoid_table
+from lip2speech_torch.kernels.ar_decode import ar_decode, decode_positions
+from lip2speech_torch.models.layers import (
+    BatchNorm1d,
+    ConvNorm,
+    LinearNorm,
+    PSine,
+    clip_grad_norm,
+    dropout,
+    keep_mask,
+    sinusoid_table,
+)
 
 
 @functools.lru_cache(maxsize=64)
@@ -44,6 +60,18 @@ def gumbel_noise(shape, generator: torch.Generator | None, device) -> torch.Tens
     return -torch.log(-torch.log(u))
 
 
+def teacher_schedule(rand: torch.Tensor, tf_ratio) -> torch.Tensor:
+    """(M,) bool: which steps read the teacher frame. The rule is inverted
+    against its name (``decoder.py:266-268, 469-471``): step i uses it when
+    ``rand[i] > tf_ratio`` and fewer than ``floor(tf_ratio * M)`` teacher
+    frames were used before, i.e. the first ``floor(tf_ratio * M)`` steps
+    whose draw passes."""
+    tf = torch.as_tensor(tf_ratio, dtype=torch.float32, device=rand.device)
+    budget = torch.floor(tf * rand.shape[0])
+    passed = rand > tf
+    return passed & (torch.cumsum(passed.to(torch.int32), 0) <= budget)
+
+
 class MultiHopConv(nn.Module):
     """Conv bank k=1,3,7,11 (each + BN + SiLU) and a 1x1 bottleneck over
     the concatenation with the input; (B, C, T) -> (B, features, T)."""
@@ -53,7 +81,7 @@ class MultiHopConv(nn.Module):
     def __init__(self, channels: int, features: int):
         super().__init__()
         self.conv = nn.ModuleList(
-            nn.Sequential(nn.Conv1d(channels, channels, k, padding=k // 2), nn.BatchNorm1d(channels))
+            nn.Sequential(nn.Conv1d(channels, channels, k, padding=k // 2), BatchNorm1d(channels))
             for k in self.KERNELS
         )
         self.bottleneck = nn.Conv1d(channels * (len(self.KERNELS) + 1), features, 1)
@@ -73,9 +101,10 @@ class ContentEncoder(nn.Module):
         c = cfg.ffn_hidden_dim
         vocab, latent = cfg.content_vocab_size, cfg.content_latent_dim
         self.tau = cfg.gumbel_tau
+        self.grad_clip = cfg.content_grad_clip
         self.word_embeddings = nn.Parameter(torch.rand(vocab, latent))
         self.agg = nn.ModuleList(
-            nn.Sequential(nn.Conv1d(c, c, k, stride=k), nn.BatchNorm1d(c)) for k in self.KERNELS
+            nn.Sequential(nn.Conv1d(c, c, k, stride=k), BatchNorm1d(c)) for k in self.KERNELS
         )
         self.bottleneck = nn.Conv1d(c * (len(self.KERNELS) + 1), latent, 1)
         self.location_fc = nn.Sequential(
@@ -90,7 +119,9 @@ class ContentEncoder(nn.Module):
                 generator: torch.Generator | None = None):
         """x (B, C, T) -> key (B, S, latent), value (B, S, latent),
         dist (B*S, vocab). ``gumbel`` (B*S, vocab) is the noise of the
-        codebook draw; drawn from ``generator`` when not given."""
+        codebook draw, f32; drawn from ``generator`` when not given. With
+        ``content_grad_clip`` set, the logits' cotangent is clipped
+        (``decoder.py:198-210``)."""
         T = x.shape[-1]
         feats = [x]
         min_t = T
@@ -108,6 +139,8 @@ class ContentEncoder(nn.Module):
         w = self.bottleneck(pooled).transpose(1, 2)  # (B, S, latent)
         key = self.K(w)
         flat = self.location_fc(w).reshape(-1, self.word_embeddings.shape[0])
+        if self.grad_clip > 0.0:
+            flat = clip_grad_norm(flat, self.grad_clip)
         if gumbel is None:
             gumbel = gumbel_noise(flat.shape, generator, flat.device)
         z = torch.softmax((flat + gumbel.to(flat.dtype)) / self.tau, dim=-1)
@@ -116,29 +149,35 @@ class ContentEncoder(nn.Module):
 
 
 class Postnet(nn.Module):
-    """5-conv residual mel refiner with PSine activations, eval mode;
-    (B, n_mels, M) -> (B, n_mels, M)."""
+    """5-conv residual mel refiner with PSine activations;
+    (B, n_mels, M) -> (B, n_mels, M). ``keep`` holds one keep mask per conv,
+    (B, C_out, M), applied after the residual add (after the last BN for
+    the last conv); ``None`` applies no dropout (``decoder.py:104-149``)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.rate = cfg.postnet_dropout
         n, k, emb = cfg.postnet_n_convolutions, cfg.postnet_kernel_size, cfg.postnet_embedding_dim
         chans = [cfg.n_mels] + [emb] * (n - 1) + [cfg.n_mels]
         self.convolutions = nn.ModuleList(
-            nn.Sequential(ConvNorm(chans[j], chans[j + 1], k), nn.BatchNorm1d(chans[j + 1]))
+            nn.Sequential(ConvNorm(chans[j], chans[j + 1], k), BatchNorm1d(chans[j + 1]))
             for j in range(n)
         )
         self.sin_activation = nn.ModuleList(PSine(emb) for _ in range(n - 1))
 
-    def forward(self, x):
+    def forward(self, x, keep: list[torch.Tensor] | None = None):
+        def drop(h, i):
+            return h if keep is None else dropout(h, keep[i], self.rate)
+
         for i, act in enumerate(self.sin_activation):
             h = act(self.convolutions[i](x), channel_dim=1)
-            x = h + x if i != 0 else h
-        return self.convolutions[-1](x)
+            x = drop(h + x if i != 0 else h, i)
+        return drop(self.convolutions[-1](x), len(self.convolutions) - 1)
 
 
 class Decoder(nn.Module):
-    """Free-running decoder: encoder features (B, T, E) + face embedding
-    (B, 256) -> mels, gate logits, attention, lengths."""
+    """Encoder features (B, T, E) + face embedding (B, 256) -> mels, gate
+    logits, attention, lengths; free-running or teacher-forced."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -162,7 +201,7 @@ class Decoder(nn.Module):
                                     nn.Dropout(cfg.prenet_dropout), LinearNorm(half, half), PSine(half))
         self.Q = nn.Sequential(LinearNorm(2 * Fh, Fh), PSine(Fh))
         # holds the AR loop's LSTM weights under the reference names; the
-        # loop itself is kernels.ar_decode
+        # loop itself is kernels.ar_decode or the teacher-forced step loop
         self.decoder_rnn = nn.LSTM(Fh, Fh, num_layers=2)
         self.fc_out = LinearNorm(Fh, cfg.n_mels)
         self.stop_token_layer = LinearNorm(2 * Fh, 1)
@@ -241,23 +280,129 @@ class Decoder(nn.Module):
             "content_dist": content_dist,
         }
 
-    def forward(self, encoder_outputs, face_features, gumbel=None, generator=None) -> dict:
+    def forward(self, encoder_outputs, face_features, gumbel=None, generator=None,
+                mels=None, tf_ratio=1.0, draws: dict | None = None) -> dict:
+        """Free-running when ``mels`` is None, else teacher-forced by
+        ``mels (B, n_mels, M)``. ``draws`` holds random draws by name
+        (``TeacherForcedDraws``); a draw it lacks comes from ``generator``.
+        ``gumbel`` is the same as ``draws["gumbel"]``."""
+        draws = dict(draws or {})
+        if gumbel is not None:
+            draws.setdefault("gumbel", gumbel)
+        enc = self.encode(encoder_outputs, face_features, draws.get("gumbel"), generator)
+        if mels is None:
+            out = self._free_running(enc, encoder_outputs.shape[0])
+        else:
+            out = self._teacher_forced(enc, mels, tf_ratio, draws, generator)
+        out["face_features"] = face_features
+        out["content_dist"] = enc["content_dist"]
+        fired = torch.sigmoid(out["gate"][..., 0].float()) > self.cfg.gate_threshold
+        first = torch.argmax(fired.to(torch.int32), dim=1) + 1
+        M = fired.shape[1]
+        out["lengths"] = torch.where(fired.any(dim=1), first, torch.full_like(first, M))
+        return out
+
+    def _free_running(self, enc: dict, B: int) -> dict:
         cfg = self.cfg
-        M = cfg.max_decoder_steps
-        B = encoder_outputs.shape[0]
-        enc = self.encode(encoder_outputs, face_features, gumbel, generator)
         bos = self.BOS.reshape(1, -1).expand(B, -1)
         weight_dtype = self.fc_out.linear_layer.weight.dtype
-        mels, stops, attn = ar_decode(cfg, self.ar_params(), enc, bos, M, weight_dtype=weight_dtype)
-
+        mels, stops, attn = ar_decode(cfg, self.ar_params(), enc, bos, cfg.max_decoder_steps,
+                                      weight_dtype=weight_dtype)
         outputs = mels.permute(1, 2, 0)  # (B, n_mels, M) f32
-        gate = stops.permute(1, 0, 2)    # (B, M, 1)
         post = self.postnet(outputs.to(weight_dtype)).float() + outputs
-        fired = torch.sigmoid(gate[..., 0]) > cfg.gate_threshold
-        first = torch.argmax(fired.to(torch.int32), dim=1) + 1
-        lengths = torch.where(fired.any(dim=1), first, torch.full_like(first, M))
-        return {
-            "mel": outputs, "mel_postnet": post, "gate": gate,
-            "attention": attn.permute(1, 0, 2), "content_dist": enc["content_dist"],
-            "face_features": face_features, "lengths": lengths,
-        }
+        return {"mel": outputs, "mel_postnet": post, "gate": stops.permute(1, 0, 2),
+                "attention": attn.permute(1, 0, 2)}
+
+    def _teacher_forced(self, enc: dict, mels: torch.Tensor, tf_ratio, draws: dict,
+                        generator: torch.Generator | None) -> dict:
+        """The scan of ``decoder.py:476-485`` as a step loop. Dense outputs
+        and the LSTM gates come in the compute dtype from products that
+        accumulate in f32; the attention scores, their dropout and softmax
+        are f32; the carry (h, c, the fed-back frame) is in the compute
+        dtype, as in the scan."""
+        cfg = self.cfg
+        k_bank, v_bank = enc["k"], enc["v"]
+        dtype, dev = k_bank.dtype, k_bank.device
+        B, T, Fh = k_bank.shape
+        M = mels.shape[-1]
+        train = self.training
+
+        def draw(name, shape, rate):
+            if not train or rate == 0.0:
+                return None
+            if name in draws:
+                return draws[name].to(dev)
+            return keep_mask(shape, rate, generator, dev)
+
+        rand = draws.get("teacher")
+        rand = torch.rand(M, generator=generator, device=dev) if rand is None else rand.to(dev)
+        use_teacher = teacher_schedule(rand, tf_ratio)
+        prenet_keep = draw("prenet", (M, B, Fh // 2), cfg.prenet_dropout)
+        attention_keep = draw("attention", (M, B, T), cfg.attention_dropout)
+        rnn_keep = draw("rnn", (M, B, Fh), cfg.decoder_rnn_dropout)
+        if train and cfg.postnet_dropout > 0.0:
+            postnet_keep = draws.get("postnet")
+            if postnet_keep is None:
+                chans = [c[0].conv.out_channels for c in self.postnet.convolutions]
+                postnet_keep = [keep_mask((B, c, M), cfg.postnet_dropout, generator, dev) for c in chans]
+            postnet_keep = [m.to(dev) for m in postnet_keep]
+        else:
+            postnet_keep = None
+
+        bos = self.BOS.reshape(1, -1).to(dtype)
+        # teacher[i] is BOS at i = 0 and mel frame i - 1 after that
+        teacher = torch.cat([bos[None].expand(B, 1, -1), mels.to(dtype).transpose(1, 2)[:, :M - 1]], 1)
+        teacher = teacher.transpose(0, 1)  # (M, B, n_mels)
+        pos = decode_positions(cfg, M, dev).to(dtype)
+        rnn = self.decoder_rnn
+        lstm = [(torch.cat([getattr(rnn, f"weight_ih_l{i}"), getattr(rnn, f"weight_hh_l{i}")], 1),
+                 getattr(rnn, f"bias_ih_l{i}") + getattr(rnn, f"bias_hh_l{i}")) for i in range(2)]
+        c_key_t = enc["content_key"].transpose(1, 2)
+        k_bank_t = k_bank.transpose(1, 2)
+        encoder_cell = enc["encoder_cell"]
+
+        def cell(layer, x, h, c):
+            w, b = lstm[layer]
+            gates = F.linear(torch.cat([x, h], -1), w, b).float()
+            i, f, g, o = gates.chunk(4, dim=-1)
+            c_new = torch.sigmoid(f) * c.float() + torch.sigmoid(i) * torch.tanh(g)
+            h_new = torch.sigmoid(o) * torch.tanh(c_new)
+            return h_new.to(dtype), c_new.to(dtype)
+
+        h = enc["hidden"]  # (2, B, F): the BiLSTM finals
+        c = torch.zeros_like(h)
+        ys = bos.expand(B, -1)
+        mel_frames, stops, attns = [], [], []
+        for i in range(M):
+            if cfg.scan_grad_clip > 0.0:
+                h = clip_grad_norm(h, cfg.scan_grad_clip)
+                c = clip_grad_norm(c, cfg.scan_grad_clip)
+                ys = clip_grad_norm(ys, cfg.scan_grad_clip)
+            ys_in = torch.where(use_teacher[i], teacher[i], ys)
+            pre = self.prenet[1](self.prenet[0](ys_in))
+            if prenet_keep is not None:
+                pre = dropout(pre, prenet_keep[i], cfg.prenet_dropout)
+            pre = self.prenet[4](self.prenet[3](pre))
+            q = self.Q(torch.cat([h[0], h[1]], -1)) + pos[i]
+            scores = torch.bmm((q * self.temperature)[:, None], k_bank_t)[:, 0].float()
+            if attention_keep is not None:  # on the f32 scores: a dropped score is 0
+                scores = dropout(scores, attention_keep[i], cfg.attention_dropout)
+            a = torch.softmax(scores, dim=-1).to(dtype)
+            o = self.attention_proj(torch.bmm(a[:, None], v_bank)[:, 0])
+            # content attention, queried by the cell states
+            cq = self.content.Q(torch.cat([c[0], c[1]], -1))
+            ca = torch.softmax(torch.bmm((cq * self.content.temperature)[:, None], c_key_t)[:, 0], dim=-1)
+            content_o = torch.bmm(ca[:, None], enc["content_value"])[:, 0]
+            h0, c0 = cell(0, torch.cat([content_o, pre + o], -1), h[0], c[0])
+            h0_in = h0 if rnn_keep is None else dropout(h0, rnn_keep[i], cfg.decoder_rnn_dropout)
+            h1, c1 = cell(1, h0_in, h[1], c[1])
+            ys = self.fc_out(h1)
+            stops.append(self.stop_token_layer(torch.cat([h1, encoder_cell], -1)))
+            mel_frames.append(ys)
+            attns.append(a)
+            h, c = torch.stack([h0, h1]), torch.stack([c0, c1])
+
+        outputs = torch.stack(mel_frames, -1)  # (B, n_mels, M)
+        post = self.postnet(outputs, postnet_keep) + outputs
+        return {"mel": outputs, "mel_postnet": post, "gate": torch.stack(stops, 1),
+                "attention": torch.stack(attns, 1)}

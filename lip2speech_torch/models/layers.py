@@ -6,8 +6,10 @@ follow the reference torch modules (``LinearNorm.linear_layer``,
 ``lip2speech_torch.weights.from_flax`` or a reference ``.pth`` loads with
 ``strict=True``. LSTM gates are in torch order (i, f, g, o).
 
-Eval-mode BatchNorm uses torch's default eps 1e-5, except in the face net
-(``models/face.py``), which uses 1e-3 like facenet.
+BatchNorm uses torch's default eps 1e-5, except in the face net
+(``models/face.py``), which uses 1e-3 like facenet and never trains. Every
+trainable BatchNorm is ``BatchNorm1d/2d/3d`` below, which trains by flax's
+rule.
 """
 
 from __future__ import annotations
@@ -16,7 +18,87 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class _ClipGradNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, limit):
+        ctx.limit = limit
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        norm = torch.sqrt(torch.sum(torch.square(g.float())))
+        scale = torch.where(torch.isfinite(norm) & (norm > ctx.limit), ctx.limit / norm, 1.0)
+        return g * scale.to(g.dtype), None
+
+
+def clip_grad_norm(x: torch.Tensor, limit: float) -> torch.Tensor:
+    """Identity whose backward rescales the cotangent to ``limit`` L2 norm
+    over the whole tensor (``layers.py:23-55``): the norm is taken in f32,
+    and a non-finite norm passes the cotangent through unscaled."""
+    return _ClipGradNorm.apply(x, limit)
+
+
+def dropout(x: torch.Tensor, keep_mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout with a given keep mask: kept entries are divided by
+    the keep probability, dropped ones become 0 (``jnp.where(mask, x / keep,
+    0)``)."""
+    return torch.where(keep_mask, x / (1.0 - rate), 0.0)
+
+
+def keep_mask(shape, rate: float, generator: torch.Generator | None, device) -> torch.Tensor:
+    """Bernoulli(1 - rate) keep mask drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < (1.0 - rate)
+
+
+class FlaxRuleBatchNorm:
+    """BatchNorm that trains as flax ``nn.BatchNorm(momentum=0.9)`` does
+    (``layers.py:271-276``).
+
+    Train mode normalises with the batch mean and the *biased* batch
+    variance E[x^2] - E[x]^2 (clamped at 0), both reduced in at least f32
+    whatever the input type; the normalisation runs in that type and
+    returns the input's. The new running statistics, ``0.9 * old + 0.1 *
+    batch`` with that same biased variance (torch's own BatchNorm would use
+    the unbiased one), are not written into the buffers: they are left in
+    ``new_stats`` (f32, or f64 for an f64 input) for the caller, as flax
+    returns them as mutable state, so a train step can keep the old ones
+    when it skips the update. Eval mode is ``F.batch_norm`` on the running
+    statistics. State-dict keys are those of ``nn.BatchNorm*d``."""
+
+    new_stats: tuple[torch.Tensor, torch.Tensor] | None = None
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        dims = [0] + list(range(2, x.ndim))
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dims)
+        var = torch.clamp(torch.square(xf).mean(dims) - torch.square(mean), min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.new_stats = (self.running_mean.to(xf.dtype) * (1 - m) + mean * m,
+                              self.running_var.to(xf.dtype) * (1 - m) + var * m)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.to(xf.dtype).view(shape)
+        return y.to(x.dtype)
+
+
+class BatchNorm1d(FlaxRuleBatchNorm, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(FlaxRuleBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(FlaxRuleBatchNorm, nn.BatchNorm3d):
+    pass
 
 
 class LinearNorm(nn.Module):

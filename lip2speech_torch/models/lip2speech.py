@@ -1,16 +1,24 @@
-"""Top-level Lip2Speech model, inference forward (PyTorch).
+"""Top-level Lip2Speech model (PyTorch).
 
-Counterpart of ``lip2speech_tpu/models/lip2speech.py`` with ``mels=None``:
-mouth-ROI video -> ``encoder`` features; the first face crop -> ``vgg_face``
-identity embedding (ReLU, then L2 norm); features + tiled embedding ->
-``decoder``. Layouts at the API edge match the JAX package: video
-``(B, T, H, W, 3)``, faces ``(B, n_crops, Hf, Wf, 3)``, mels ``(B, n_mels, M)``.
-An external ``speaker_embedding`` replaces the face net; a model built with
+Counterpart of ``lip2speech_tpu/models/lip2speech.py``: mouth-ROI video ->
+``encoder`` features; the first face crop -> ``vgg_face`` identity embedding
+(ReLU, then L2 norm); features + tiled embedding -> ``decoder``. Layouts at
+the API edge match the JAX package: video ``(B, T, H, W, 3)``, faces
+``(B, n_crops, Hf, Wf, 3)``, mels ``(B, n_mels, M)``. An external
+``speaker_embedding`` replaces the face net; a model built with
 ``face_net=False`` has none, and loads a state dict without ``vgg_face.*``.
+
+Without ``mels`` the forward is free-running inference under
+``torch.no_grad()``. With ``mels`` it is the teacher-forced forward with
+autograd; in train mode the encoder's BatchNorms train, encoder features
+get dropout (``lip2speech.py:59-62``), and the decoder trains. The face
+net always runs in eval mode under ``torch.no_grad()``: it gets no
+gradient and no BatchNorm update (``lip2speech.py:64-72``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -19,6 +27,7 @@ from torch import nn
 from lip2speech_torch.config import ModelConfig
 from lip2speech_torch.models.decoder import Decoder
 from lip2speech_torch.models.face import FaceRecognizer
+from lip2speech_torch.models.layers import dropout, keep_mask
 from lip2speech_torch.models.video import VideoExtractor
 
 
@@ -31,21 +40,42 @@ class Lip2Speech(nn.Module):
         self.decoder = Decoder(cfg)
         self.eval()
 
-    @torch.no_grad()
+    def train(self, mode: bool = True):
+        """Sets the encoder and decoder's mode; the face net stays in eval
+        mode, since it never trains."""
+        super().train(mode)
+        if self.vgg_face is not None:
+            self.vgg_face.eval()
+        return self
+
     def forward(self, video: torch.Tensor, faces: torch.Tensor | None = None,
                 speaker_embedding: torch.Tensor | None = None,
                 gumbel: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> dict:
-        """Free-running inference. ``gumbel`` is the content codebook's noise
-        (B*S, vocab); without it the draw comes from ``generator``."""
-        feats = self.encoder(video)
-        if speaker_embedding is None:
-            if self.vgg_face is None:
-                raise ValueError("a model without the face net needs a speaker_embedding")
-            speaker_embedding = self.vgg_face.inference(faces[:, 0].permute(0, 3, 1, 2))
-        T = feats.shape[1]
-        visual = torch.cat([feats, speaker_embedding[:, None, :].expand(-1, T, -1)], dim=-1)
-        out = self.decoder(visual, speaker_embedding, gumbel, generator)
+                generator: torch.Generator | None = None,
+                mels: torch.Tensor | None = None, tf_ratio=1.0,
+                draws: dict | None = None) -> dict:
+        """Free-running inference without ``mels``, the teacher-forced
+        forward with them. ``draws`` holds random draws by name: the
+        decoder's (``Decoder.forward``) and ``encoder``, the keep mask of
+        the encoder features (B, T, C_video); ``gumbel`` is the content
+        codebook's noise (B*S, vocab). A draw that is absent comes from
+        ``generator``."""
+        with torch.no_grad() if mels is None else contextlib.nullcontext():
+            feats = self.encoder(video)
+            rate = self.cfg.encoder_feature_dropout
+            if mels is not None and self.training and rate > 0.0:
+                keep = (draws or {}).get("encoder")
+                keep = keep_mask(feats.shape, rate, generator, feats.device) if keep is None else keep
+                feats = dropout(feats, keep.to(feats.device), rate)
+            if speaker_embedding is None:
+                if self.vgg_face is None:
+                    raise ValueError("a model without the face net needs a speaker_embedding")
+                with torch.no_grad():
+                    speaker_embedding = self.vgg_face.inference(faces[:, 0].permute(0, 3, 1, 2))
+            T = feats.shape[1]
+            visual = torch.cat([feats, speaker_embedding[:, None, :].expand(-1, T, -1)], dim=-1)
+            out = self.decoder(visual, speaker_embedding, gumbel, generator, mels=mels,
+                               tf_ratio=tf_ratio, draws=draws)
         out["speaker_embedding"] = speaker_embedding
         return out
 

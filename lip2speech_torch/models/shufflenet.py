@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from lip2speech_torch.models.layers import BatchNorm2d
+
 STAGE_REPEATS = (4, 8, 4)
 
 # width multiplier -> per-stage output channels; the last entry is conv_last
@@ -31,7 +33,7 @@ def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
 
 def _conv_bn(cin, cout, k, stride=1, groups=1):
     return [nn.Conv2d(cin, cout, k, stride, k // 2, groups=groups, bias=False),
-            nn.BatchNorm2d(cout)]
+            BatchNorm2d(cout)]
 
 
 class InvertedResidual(nn.Module):

@@ -4,7 +4,10 @@ Counterpart of ``lip2speech_tpu/models/video.py``. The front end is the
 reference's ``nn.Conv3d(3, 24, (5, 7, 7), stride (1, 2, 2), padding
 (2, 3, 3))`` on cuDNN, then BN, PReLU and a (1, 3, 3) max-pool that never
 pools over time; the trunk runs per frame on ``(B*T, C, H, W)``. Output is
-``(B, T, C_video)``, L2-normalised per frame (reference video.py:85).
+``(B, T, C_video)``, L2-normalised per frame (reference video.py:85). In
+train mode its BatchNorms train by flax's rule (``layers.BatchNorm3d``,
+``layers.BatchNorm2d``); the Conv3d on cuDNN computes the same function as
+the JAX package's time-tap fold, gradients included.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from lip2speech_torch.models.layers import BatchNorm3d
 from lip2speech_torch.models.shufflenet import WIDTH_CHANNELS, ShuffleNetV2Trunk
 
 
@@ -23,7 +27,7 @@ class VideoExtractor(nn.Module):
         c = frontend_channels
         self.frontend3D = nn.Sequential(
             nn.Conv3d(3, c, (5, 7, 7), stride=(1, 2, 2), padding=(2, 3, 3), bias=False),
-            nn.BatchNorm3d(c),
+            BatchNorm3d(c),
             nn.PReLU(c),
             nn.MaxPool3d((1, 3, 3), stride=(1, 2, 2), padding=(0, 1, 1)),
         )

@@ -1,9 +1,10 @@
 """Mel filterbank and mel -> linear inversion (PyTorch).
 
 Counterpart of ``lip2speech_tpu/ops/mel.py``: the HTK filterbank with
-norm=None (torchaudio's ``melscale_fbanks``), the log de-normalisation,
-and the NNLS inversion of the mel projection (pseudo-inverse warm start,
-then multiplicative updates, ``mel.py:91-120``).
+norm=None (torchaudio's ``melscale_fbanks``), the log-mel spectrogram of
+the training targets (``mel.py:57-88``), the log de-normalisation, and the
+NNLS inversion of the mel projection (pseudo-inverse warm start, then
+multiplicative updates, ``mel.py:91-120``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from lip2speech_torch.config import AudioConfig
+from lip2speech_torch.ops.stft import spectrogram
 
 
 def hz_to_mel(f):
@@ -46,6 +48,21 @@ def _filterbank_on(cfg: AudioConfig, device: torch.device) -> tuple[torch.Tensor
     on ``device``, made once."""
     fb = mel_filterbank(cfg.n_freqs, cfg.n_mels, cfg.sample_rate, cfg.fmin, cfg.fmax)
     return torch.tensor(fb, device=device), torch.tensor(np.linalg.pinv(fb), device=device)
+
+
+def log_compress(x: torch.Tensor, clip_val: float = 1e-5) -> torch.Tensor:
+    """``spectral_normalize``: log(clamp(x, min=clip_val))."""
+    return torch.log(torch.clamp(x, min=clip_val))
+
+
+def melspectrogram(waveform: torch.Tensor, cfg: AudioConfig = AudioConfig(),
+                   log: bool = True) -> torch.Tensor:
+    """Waveform ``(..., n_samples)`` -> log-mel ``(..., n_mels, T)``: frame,
+    windowed DFT product, power, mel product, log clamp."""
+    power = spectrogram(waveform, cfg.n_fft, cfg.hop_length, cfg.win_length, power=2.0)
+    fb, _ = _filterbank_on(cfg, waveform.device)
+    mel = torch.einsum("...ft,fm->...mt", power, fb)
+    return log_compress(mel, cfg.clip_val) if log else mel
 
 
 def log_decompress(x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,75 @@
+"""Train-state checkpoints (PyTorch).
+
+Counterpart of ``save_checkpoint``, ``available_steps``,
+``prune_checkpoints`` and ``restore_checkpoint`` in
+``lip2speech_tpu/train/checkpoint.py:345-447``, written with
+``torch.save``: ``<dir>/step_<N>.pt`` holds the model's state dict under the
+reference names, the optimizer state, the step and ``extra``. A save goes
+to a temporary file first and is renamed into place, so a save cut short
+leaves only a temporary file, which listing skips. The JAX package's orbax
+checkpoints are not read here; parameters cross over through
+``weights.from_flax``.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+
+import torch
+
+_STEP = re.compile(r"step_(\d+)\.pt")
+
+
+def _path(ckpt_dir: str, step: int) -> str:
+    return os.path.join(os.path.abspath(ckpt_dir), f"step_{step}.pt")
+
+
+def save_checkpoint(ckpt_dir: str, step: int, state, extra: dict | None = None) -> str:
+    """Write ``state`` (a ``TrainState``) as step ``step``; returns the path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    model = {k: v for k, v in state.model.state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    payload = {"model": model, "optimizer": state.opt.state_dict(), "step": int(state.step),
+               "extra": dict(extra or {})}
+    path = _path(ckpt_dir, step)
+    tmp = f"{path}.tmp-{os.getpid()}"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def available_steps(ckpt_dir: str) -> list[int]:
+    """Sorted steps of the finished checkpoints under ``ckpt_dir``."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(m.group(1)) for m in map(_STEP.fullmatch, os.listdir(ckpt_dir)) if m)
+
+
+def prune_checkpoints(ckpt_dir: str, keep: int) -> None:
+    """Delete the oldest checkpoints, keeping the newest ``keep``."""
+    for s in available_steps(ckpt_dir)[:-keep]:
+        os.remove(_path(ckpt_dir, s))
+
+
+def restore_checkpoint(ckpt_dir: str, state=None, step: int | None = None):
+    """Restore the newest checkpoint, or step ``step`` exactly. With
+    ``state``, loads it in place (model with ``strict=True``, optimizer,
+    step) and returns ``(state, extra)``; without, returns ``(payload,
+    extra)``. Returns None when there is no checkpoint; a missing explicit
+    step raises ``FileNotFoundError``."""
+    steps = available_steps(ckpt_dir)
+    if not steps:
+        return None
+    if step is not None and step not in steps:
+        raise FileNotFoundError(
+            f"checkpoint step {step} not found in {os.path.abspath(ckpt_dir)}; "
+            f"available steps: {steps}")
+    payload = torch.load(_path(ckpt_dir, max(steps) if step is None else step),
+                         map_location="cpu", weights_only=True)
+    if state is None:
+        return payload, payload["extra"]
+    state.model.load_state_dict(payload["model"], strict=True)
+    state.opt.load_state_dict(payload["optimizer"])
+    state.step = payload["step"]
+    return state, payload["extra"]

@@ -1,0 +1,152 @@
+"""The optimizer of the train step (PyTorch).
+
+``AMSGrad`` is the counterpart of ``make_optimizer`` and its parts in
+``lip2speech_tpu/train/train_step.py:66-176``, in the same order:
+
+1. ``reject_above_norm``: a step whose raw global gradient norm exceeds
+   ``reject_grad_norm_above`` (when > 0) is skipped;
+2. ``skip_if_not_finite``: a step with a non-finite gradient is skipped,
+   and the wrapper never gives up. A skipped step emits a zero update,
+   leaves the moments and the count unchanged, and adds one to
+   ``notfinite_count`` (consecutive skips) and ``total_notfinite``;
+3. ``clip_by_global_norm(grad_clip)`` over the trainable gradients;
+4. AMSGrad as optax 0.2.6 ``scale_by_amsgrad``: ``nu_max = max(nu_max,
+   nu / (1 - b2^t))`` and the update ``(mu / (1 - b1^t)) / (sqrt(nu_max) +
+   1e-8)``. ``torch.optim.AdamW(amsgrad=True)`` keeps the max of the raw
+   second moments instead, which is another optimizer;
+5. ``+ weight_decay * p`` on the trainable parameters;
+6. ``* -learning_rate``.
+
+Trainable parameters are those named ``encoder.*`` and ``decoder.*``; the
+others (``vgg_face.*``) are frozen, get no decay and never move. An LSTM's
+``bias_hh_*`` is not optimised either: the JAX package trains one folded
+bias per LSTM layer, so the train state folds ``bias_hh`` into ``bias_ih``
+(``fold_lstm_biases_``) and the optimizer moves ``bias_ih`` alone, as JAX
+moves its bias (two biases under AMSGrad would move their sum by up to
+twice the step). The
+optimizer keeps its state as flat f32 vectors over the trainable
+parameters, so a step is a few dozen elementwise kernels whatever the
+number of tensors, and the skip is a select on the device (no host sync).
+The update is added in place to the parameters themselves, which bumps
+their version counters: caches keyed by tensor version (the AR kernel's
+weight pack, ``Decoder._lstm_bias``) see the new weights.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lip2speech_torch.config import TrainConfig
+
+TRAINABLE_TOP = ("encoder", "decoder")
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def is_trainable(name: str) -> bool:
+    """True for parameters under ``encoder.`` or ``decoder.``."""
+    return name.split(".", 1)[0] in TRAINABLE_TOP
+
+
+def is_optimised(name: str) -> bool:
+    """Trainable, and not an LSTM's folded-away ``bias_hh``."""
+    return is_trainable(name) and ".bias_hh_" not in name
+
+
+@torch.no_grad()
+def fold_lstm_biases_(model: torch.nn.Module) -> torch.nn.Module:
+    """Every LSTM's ``bias_ih += bias_hh``, ``bias_hh = 0``, in place (the
+    same function: the cell adds both)."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.LSTM):
+            for name, p in m.named_parameters():
+                if name.startswith("bias_hh_"):
+                    getattr(m, name.replace("bias_hh_", "bias_ih_")).add_(p)
+                    p.zero_()
+    return model
+
+
+def all_finite(tensors) -> torch.Tensor:
+    """0-d bool on the tensors' device: every entry of every tensor is
+    finite (their max |x| is finite; a NaN makes it NaN)."""
+    peaks = torch._foreach_norm(list(tensors), float("inf"))
+    return torch.isfinite(torch.stack(peaks)).all()
+
+
+class AMSGrad:
+    """``make_optimizer``'s chain over ``named_params`` (name, parameter)."""
+
+    def __init__(self, cfg: TrainConfig, named_params):
+        named = list(named_params)
+        self.cfg = cfg
+        self.names = [n for n, _ in named if is_optimised(n)]
+        self.params = [p for n, p in named if is_optimised(n)]
+        self.guarded = cfg.skip_nonfinite_updates or cfg.reject_grad_norm_above > 0.0
+        dev = self.params[0].device
+        size = sum(p.numel() for p in self.params)
+        self.mu = torch.zeros(size, device=dev)
+        self.nu = torch.zeros(size, device=dev)
+        self.nu_max = torch.zeros(size, device=dev)
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.total_notfinite = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def flatten(self, grads) -> torch.Tensor:
+        """The trainable gradients as one f32 vector; a missing gradient
+        counts as zeros."""
+        return torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1).float()
+                          for p, g in zip(self.params, grads)])
+
+    def accepts(self, g: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
+        """0-d bool: the step is taken (steps 1 and 2 of the chain)."""
+        ok = torch.ones((), dtype=torch.bool, device=g.device)
+        if self.guarded:
+            ok = torch.isfinite(g).all()
+        if self.cfg.reject_grad_norm_above > 0.0:
+            ok = ok & (norm <= self.cfg.reject_grad_norm_above)
+        return ok
+
+    @torch.no_grad()
+    def step(self, grads) -> dict[str, torch.Tensor]:
+        """One update from the trainable gradients (in ``self.names``
+        order), written in place into the parameters. Returns ``ok`` (the
+        step was taken), ``grad_norm`` (global norm of the raw gradients)
+        and, when guarded, ``notfinite_count``; all 0-d tensors."""
+        cfg = self.cfg
+        g = self.flatten(grads)
+        norm = torch.sqrt(torch.sum(g * g))
+        ok = self.accepts(g, norm)
+        # clip_by_global_norm: select(norm < clip, g, g / norm * clip)
+        g = torch.where(norm < cfg.grad_clip, g, g / norm * cfg.grad_clip)
+        mu = (1 - B1) * g + B1 * self.mu
+        nu = (1 - B2) * (g * g) + B2 * self.nu
+        count = self.count + 1
+        mu_hat = mu / (1 - torch.pow(torch.tensor(B1, device=g.device), count.float()))
+        nu_hat = nu / (1 - torch.pow(torch.tensor(B2, device=g.device), count.float()))
+        nu_max = torch.maximum(self.nu_max, nu_hat)
+        p = torch.cat([x.reshape(-1) for x in self.params])
+        u = (mu_hat / (torch.sqrt(nu_max) + EPS) + cfg.weight_decay * p) * -cfg.learning_rate
+        if self.guarded:
+            u = torch.where(ok, u, 0.0)
+            mu, nu, nu_max = (torch.where(ok, new, old) for new, old in
+                              ((mu, self.mu), (nu, self.nu), (nu_max, self.nu_max)))
+            count = torch.where(ok, count, self.count)
+            self.notfinite_count = torch.where(ok, 0, self.notfinite_count + 1).to(torch.int32)
+            self.total_notfinite = self.total_notfinite + (~ok).to(torch.int32)
+        self.mu, self.nu, self.nu_max, self.count = mu, nu, nu_max, count
+        torch._foreach_add_(self.params, [x.view_as(q) for x, q in
+                                          zip(u.split([q.numel() for q in self.params]), self.params)])
+        out = {"ok": ok, "grad_norm": norm}
+        if self.guarded:
+            out["notfinite_count"] = self.notfinite_count
+        return out
+
+    def state_dict(self) -> dict:
+        return {"names": list(self.names), "mu": self.mu, "nu": self.nu, "nu_max": self.nu_max,
+                "count": self.count, "notfinite_count": self.notfinite_count,
+                "total_notfinite": self.total_notfinite}
+
+    def load_state_dict(self, state: dict):
+        if list(state["names"]) != self.names:
+            raise ValueError("optimizer state is for other parameters")
+        for k in ("mu", "nu", "nu_max", "count", "notfinite_count", "total_notfinite"):
+            setattr(self, k, state[k].to(getattr(self, k).device).clone())

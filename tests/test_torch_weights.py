@@ -93,10 +93,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import lip2speech_torch.cli.synthesize, lip2speech_torch.eval.long_video\n"
         "import lip2speech_torch.kernels.ar_decode, lip2speech_torch.weights\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'lip2speech_tpu')]\n"
+        "import lip2speech_torch.train.checkpoint, lip2speech_torch.train.losses\n"
+        "import lip2speech_torch.train.optim, lip2speech_torch.train.train_step\n"
+        "import lip2speech_torch.data.collate\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lip2speech_tpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not bad, bad\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'lip2speech_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)

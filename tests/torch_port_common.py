@@ -9,6 +9,8 @@ to the port.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import numpy as np
 import torch
@@ -73,4 +75,86 @@ def to_plain(tree) -> dict:
 def t(x) -> torch.Tensor:
     """numpy / JAX array -> f32 CPU tensor."""
     return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+STEP_KEY_NAMES = ["gumbel", "teacher", "dropout", "postnet_dropout", "encoder_dropout"]
+
+
+def jax_step_keys(rng, step: int) -> dict:
+    """The per-step keys of the JAX train step (train_step.py:209-211)."""
+    return dict(zip(STEP_KEY_NAMES, jax.random.split(jax.random.fold_in(rng, step), 5)))
+
+
+def content_slots(T: int) -> int:
+    """Slots of the content codebook for T frames: the shortest of the
+    strided aggregation scales (a scale longer than T gives one frame)."""
+    return min(T // k if T >= k else 1 for k in (1, 3, 5, 7))
+
+
+def jax_draws(jc, rngs: dict, B: int, T: int, S: int, M: int, video_dim: int | None = None) -> dict:
+    """The random draws the JAX forward makes from ``rngs``, as the port's
+    ``draws`` (torch tensors; keep masks are bool):
+
+    - gumbel (B*S, vocab): ContentEncoder (decoder.py:218);
+    - teacher (M,): uniform (decoder.py:469);
+    - prenet (M,B,F/2), attention (M,B,T), rnn (M,B,F): the scan splits the
+      dropout key into M step keys, each into three (decoder.py:256, 474);
+    - postnet: one (B, C, M) mask per conv, from fold_in(key, i) on the
+      channels-last (B, M, C) shape (decoder.py:116-123);
+    - encoder (B,T,C_video): the encoder-feature mask (lip2speech.py:61).
+    """
+    out = _jax_draw_arrays(jc, rngs, B, T, S, M, video_dim)
+    draws = {k: torch.from_numpy(np.array(v)) for k, v in out.items() if k != "postnet"}
+    if "postnet" in out:
+        draws["postnet"] = [torch.from_numpy(np.array(m).transpose(0, 2, 1).copy())
+                            for m in out["postnet"]]
+    return draws
+
+
+@functools.partial(jax.jit, static_argnums=(0, 2, 3, 4, 5, 6))
+def _jax_draw_arrays(jc, rngs, B, T, S, M, video_dim):
+    F = jc.ffn_hidden_dim
+    out = {
+        "gumbel": jax.random.gumbel(rngs["gumbel"], (B * S, jc.content_vocab_size), np.float32),
+        "teacher": jax.random.uniform(rngs["teacher"], (M,)),
+    }
+
+    def step(key):
+        k1, k2, k3 = jax.random.split(key, 3)
+        return (jax.random.bernoulli(k1, 1.0 - jc.prenet_dropout, (B, F // 2)),
+                jax.random.bernoulli(k2, 1.0 - jc.attention_dropout, (B, T)),
+                jax.random.bernoulli(k3, 1.0 - jc.decoder_rnn_dropout, (B, F)))
+
+    if "dropout" in rngs:
+        masks = jax.vmap(step)(jax.random.split(rngs["dropout"], M))
+        out.update(zip(("prenet", "attention", "rnn"), masks))
+    if "postnet_dropout" in rngs:
+        n = jc.postnet_n_convolutions
+        chans = [jc.postnet_embedding_dim] * (n - 1) + [jc.n_mels]
+        out["postnet"] = [jax.random.bernoulli(jax.random.fold_in(rngs["postnet_dropout"], i),
+                                               1.0 - jc.postnet_dropout, (B, M, c))
+                          for i, c in enumerate(chans)]
+    if "encoder_dropout" in rngs and video_dim is not None:
+        out["encoder"] = jax.random.bernoulli(rngs["encoder_dropout"],
+                                              1.0 - jc.encoder_feature_dropout, (B, T, video_dim))
+    return out
+
+
+def grads_by_torch_name(grads: dict, new_stats: dict, tc) -> dict:
+    """JAX gradients (a params tree) and new batch statistics -> one dict
+    under the port's names, through ``weights.from_flax``. The folded LSTM
+    bias's gradient belongs to both ``bias_ih`` and ``bias_hh``."""
+    from lip2speech_torch import weights
+
+    sd = weights.from_flax({"params": to_plain(grads), "batch_stats": to_plain(new_stats)}, tc)
+    for k in list(sd):
+        if ".bias_hh_" in k:
+            sd[k] = sd[k.replace(".bias_hh_", ".bias_ih_")]
+    return sd
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (1 where want is all zeros)."""
+    scale = float(want.abs().max()) or 1.0
+    return float((got - want).abs().max()) / scale
 
