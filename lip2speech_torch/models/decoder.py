@@ -33,9 +33,11 @@ from lip2speech_torch.models.layers import (
     ConvNorm,
     LinearNorm,
     PSine,
+    at_least_f32,
     clip_grad_norm,
     dropout,
     keep_mask,
+    lstm_cell_step,
     sinusoid_table,
 )
 
@@ -316,10 +318,10 @@ class Decoder(nn.Module):
     def _teacher_forced(self, enc: dict, mels: torch.Tensor, tf_ratio, draws: dict,
                         generator: torch.Generator | None) -> dict:
         """The scan of ``decoder.py:476-485`` as a step loop. Dense outputs
-        and the LSTM gates come in the compute dtype from products that
-        accumulate in f32; the attention scores, their dropout and softmax
-        are f32; the carry (h, c, the fed-back frame) is in the compute
-        dtype, as in the scan."""
+        come in the compute dtype from products that accumulate in f32; the
+        LSTM cells (``layers.lstm_cell_step``), the attention scores, their
+        dropout and softmax are f32; the carry (h, c, the fed-back frame) is
+        in the compute dtype, as in the scan."""
         cfg = self.cfg
         k_bank, v_bank = enc["k"], enc["v"]
         dtype, dev = k_bank.dtype, k_bank.device
@@ -355,19 +357,17 @@ class Decoder(nn.Module):
         teacher = teacher.transpose(0, 1)  # (M, B, n_mels)
         pos = decode_positions(cfg, M, dev).to(dtype)
         rnn = self.decoder_rnn
-        lstm = [(torch.cat([getattr(rnn, f"weight_ih_l{i}"), getattr(rnn, f"weight_hh_l{i}")], 1),
-                 getattr(rnn, f"bias_ih_l{i}") + getattr(rnn, f"bias_hh_l{i}")) for i in range(2)]
+        # (wx, wh, b) per layer, cast to f32 once: the cell's products are f32
+        lstm = [tuple(at_least_f32(w) for w in (
+                    getattr(rnn, f"weight_ih_l{i}").t(), getattr(rnn, f"weight_hh_l{i}").t(),
+                    getattr(rnn, f"bias_ih_l{i}") + getattr(rnn, f"bias_hh_l{i}")))
+                for i in range(2)]
         c_key_t = enc["content_key"].transpose(1, 2)
         k_bank_t = k_bank.transpose(1, 2)
         encoder_cell = enc["encoder_cell"]
 
         def cell(layer, x, h, c):
-            w, b = lstm[layer]
-            gates = F.linear(torch.cat([x, h], -1), w, b).float()
-            i, f, g, o = gates.chunk(4, dim=-1)
-            c_new = torch.sigmoid(f) * c.float() + torch.sigmoid(i) * torch.tanh(g)
-            h_new = torch.sigmoid(o) * torch.tanh(c_new)
-            return h_new.to(dtype), c_new.to(dtype)
+            return lstm_cell_step(*lstm[layer], x, h, c)
 
         h = enc["hidden"]  # (2, B, F): the BiLSTM finals
         c = torch.zeros_like(h)
@@ -384,7 +384,7 @@ class Decoder(nn.Module):
                 pre = dropout(pre, prenet_keep[i], cfg.prenet_dropout)
             pre = self.prenet[4](self.prenet[3](pre))
             q = self.Q(torch.cat([h[0], h[1]], -1)) + pos[i]
-            scores = torch.bmm((q * self.temperature)[:, None], k_bank_t)[:, 0].float()
+            scores = at_least_f32(torch.bmm((q * self.temperature)[:, None], k_bank_t)[:, 0])
             if attention_keep is not None:  # on the f32 scores: a dropped score is 0
                 scores = dropout(scores, attention_keep[i], cfg.attention_dropout)
             a = torch.softmax(scores, dim=-1).to(dtype)

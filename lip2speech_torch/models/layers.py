@@ -22,6 +22,11 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or as it is when it is wider (an f64 reference run)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class _ClipGradNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, limit):
@@ -30,15 +35,16 @@ class _ClipGradNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        norm = torch.sqrt(torch.sum(torch.square(g.float())))
+        norm = torch.sqrt(torch.sum(torch.square(at_least_f32(g))))
         scale = torch.where(torch.isfinite(norm) & (norm > ctx.limit), ctx.limit / norm, 1.0)
         return g * scale.to(g.dtype), None
 
 
 def clip_grad_norm(x: torch.Tensor, limit: float) -> torch.Tensor:
     """Identity whose backward rescales the cotangent to ``limit`` L2 norm
-    over the whole tensor (``layers.py:23-55``): the norm is taken in f32,
-    and a non-finite norm passes the cotangent through unscaled."""
+    over the whole tensor (``layers.py:23-55``): the norm is taken in (at
+    least) f32, and a non-finite norm passes the cotangent through
+    unscaled."""
     return _ClipGradNorm.apply(x, limit)
 
 
@@ -77,7 +83,7 @@ class FlaxRuleBatchNorm:
                                 False, 0.0, self.eps)
         dims = [0] + list(range(2, x.ndim))
         shape = [1, -1] + [1] * (x.ndim - 2)
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        xf = at_least_f32(x)
         mean = xf.mean(dims)
         var = torch.clamp(torch.square(xf).mean(dims) - torch.square(mean), min=0.0)
         with torch.no_grad():
@@ -160,12 +166,15 @@ def sinusoid_table(n_position: int, d_hid: int) -> np.ndarray:
 def lstm_cell_step(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
                    x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
     """One fused LSTM step, gate order (i, f, g, o). ``wx (in, 4H)``,
-    ``wh (H, 4H)``, ``b (4H,)``; f32 state."""
-    gates = x @ wx + h @ wh + b
+    ``wh (H, 4H)``, ``b (4H,)``. The products, gates and state update are
+    (at least) f32 whatever the operands' type (``layers.py:165-180``:
+    products accumulate in f32); h and c return in ``x``'s type."""
+    f32 = at_least_f32
+    gates = f32(x) @ f32(wx) + f32(h) @ f32(wh) + f32(b)
     i, f, g, o = gates.chunk(4, dim=-1)
-    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    c_new = torch.sigmoid(f) * f32(c) + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
-    return h_new, c_new
+    return h_new.to(x.dtype), c_new.to(x.dtype)
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

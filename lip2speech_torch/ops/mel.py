@@ -55,14 +55,12 @@ def log_compress(x: torch.Tensor, clip_val: float = 1e-5) -> torch.Tensor:
     return torch.log(torch.clamp(x, min=clip_val))
 
 
-def melspectrogram(waveform: torch.Tensor, cfg: AudioConfig = AudioConfig(),
-                   log: bool = True) -> torch.Tensor:
+def melspectrogram(waveform: torch.Tensor, cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
     """Waveform ``(..., n_samples)`` -> log-mel ``(..., n_mels, T)``: frame,
     windowed DFT product, power, mel product, log clamp."""
-    power = spectrogram(waveform, cfg.n_fft, cfg.hop_length, cfg.win_length, power=2.0)
+    power = spectrogram(waveform, cfg.n_fft, cfg.hop_length, cfg.win_length)
     fb, _ = _filterbank_on(cfg, waveform.device)
-    mel = torch.einsum("...ft,fm->...mt", power, fb)
-    return log_compress(mel, cfg.clip_val) if log else mel
+    return log_compress(torch.einsum("...ft,fm->...mt", power, fb), cfg.clip_val)
 
 
 def log_decompress(x: torch.Tensor) -> torch.Tensor:

@@ -106,29 +106,16 @@ def stft_matmul(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
 
 
 def stft(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
-         win_length: int | None = None, window: torch.Tensor | None = None,
-         center: bool = True) -> torch.Tensor:
-    """Complex STFT of ``x (..., n_samples)`` -> ``(..., n_freqs, T)``
-    (``torch.fft.rfft`` of the windowed frames)."""
-    win_length = win_length or n_fft
-    if window is None:
-        window = hann_window(win_length, x.device, x.dtype)
-    frames = frame_signal(x, n_fft, hop_length, center) * _pad_window(window, n_fft)
-    return torch.fft.rfft(frames, n=n_fft, dim=-1).transpose(-1, -2)
+         win_length: int | None = None) -> torch.Tensor:
+    """Complex STFT of ``x (..., n_samples)`` -> ``(..., n_freqs, T)``."""
+    return torch.complex(*stft_matmul(x, n_fft, hop_length, win_length))
 
 
 def spectrogram(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
-                win_length: int | None = None, power: float = 2.0,
-                center: bool = True) -> torch.Tensor:
-    """Power (or magnitude) spectrogram ``(..., n_freqs, T)`` from the DFT
-    product (``stft.py:141-156``)."""
-    re, im = stft_matmul(x, n_fft, hop_length, win_length, center=center)
-    p = re * re + im * im
-    if power == 2.0:
-        return p
-    if power == 1.0:
-        return torch.sqrt(torch.clamp(p, min=1e-30))
-    return torch.pow(torch.clamp(p, min=1e-30), power / 2.0)
+                win_length: int | None = None) -> torch.Tensor:
+    """Power spectrogram ``(..., n_freqs, T)`` (``stft.py:141-156``)."""
+    re, im = stft_matmul(x, n_fft, hop_length, win_length)
+    return re * re + im * im
 
 
 def _overlap_add(frames: torch.Tensor, hop_length: int, n_fft: int) -> torch.Tensor:

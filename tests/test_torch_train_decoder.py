@@ -36,8 +36,8 @@ from lip2speech_torch import weights
 from lip2speech_torch.models.decoder import Decoder
 from lip2speech_torch.train.losses import lip2speech_loss
 from lip2speech_torch.train.train_step import batch_norms
-from torch_port_common import (fill_tree, grads_by_torch_name, jax_draws, rel_err,
-                               small_configs, t, to_plain)
+from torch_port_common import (FAST_COMPILE, fill_tree, grads_by_torch_name, jax_draws,
+                               rel_err, small_configs, t, to_plain)
 
 B, T, M = 2, 14, 12
 OUT_TOL = dict(atol=2e-4, rtol=1e-3)
@@ -86,7 +86,7 @@ def runs():
         jc, tc = small_configs(**extra)
         args = (v["params"], v["batch_stats"], enc_in, face, mels, gate, jnp.float32(tf), rngs)
         if bool(extra) not in fns:
-            fns[bool(extra)] = jax.jit(_jax_fn(jc)[1])
+            fns[bool(extra)] = jax.jit(_jax_fn(jc)[1], compiler_options=FAST_COMPILE)
         jl, jo, jg, js = fns[bool(extra)](*args)
         S = jo["content_dist"].shape[0] // B
         want_g = grads_by_torch_name({"decoder": jg}, {"decoder": js}, tc)

@@ -18,6 +18,11 @@ import torch
 from lip2speech_tpu import config as jcfg
 from lip2speech_torch import config as tcfg
 
+# for jax.jit: XLA's backend (LLVM) optimisation level 0. A test's JAX graph
+# then compiles in about half the time on a CPU (its draws in a quarter),
+# and computes the same function: the draws come out bit-identical.
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
 # the small decoder of tests/test_pallas_decoder.py, with the 0.5x trunk
 SMALL = dict(
     ffn_hidden_dim=128,
@@ -103,7 +108,11 @@ def jax_draws(jc, rngs: dict, B: int, T: int, S: int, M: int, video_dim: int | N
       channels-last (B, M, C) shape (decoder.py:116-123);
     - encoder (B,T,C_video): the encoder-feature mask (lip2speech.py:61).
     """
-    out = _jax_draw_arrays(jc, rngs, B, T, S, M, video_dim)
+    rates = (jc.prenet_dropout, jc.attention_dropout, jc.decoder_rnn_dropout,
+             jc.postnet_dropout, jc.encoder_feature_dropout)
+    chans = (jc.postnet_embedding_dim,) * (jc.postnet_n_convolutions - 1) + (jc.n_mels,)
+    out = _jax_draw_arrays(jc.ffn_hidden_dim, jc.content_vocab_size, rates, chans, rngs,
+                           B, T, S, M, video_dim)
     draws = {k: torch.from_numpy(np.array(v)) for k, v in out.items() if k != "postnet"}
     if "postnet" in out:
         draws["postnet"] = [torch.from_numpy(np.array(m).transpose(0, 2, 1).copy())
@@ -111,32 +120,31 @@ def jax_draws(jc, rngs: dict, B: int, T: int, S: int, M: int, video_dim: int | N
     return draws
 
 
-@functools.partial(jax.jit, static_argnums=(0, 2, 3, 4, 5, 6))
-def _jax_draw_arrays(jc, rngs, B, T, S, M, video_dim):
-    F = jc.ffn_hidden_dim
+@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3, 5, 6, 7, 8, 9),
+                   compiler_options=FAST_COMPILE)
+def _jax_draw_arrays(F, vocab, rates, chans, rngs, B, T, S, M, video_dim):
+    p_prenet, p_attention, p_rnn, p_postnet, p_encoder = rates
     out = {
-        "gumbel": jax.random.gumbel(rngs["gumbel"], (B * S, jc.content_vocab_size), np.float32),
+        "gumbel": jax.random.gumbel(rngs["gumbel"], (B * S, vocab), np.float32),
         "teacher": jax.random.uniform(rngs["teacher"], (M,)),
     }
 
     def step(key):
         k1, k2, k3 = jax.random.split(key, 3)
-        return (jax.random.bernoulli(k1, 1.0 - jc.prenet_dropout, (B, F // 2)),
-                jax.random.bernoulli(k2, 1.0 - jc.attention_dropout, (B, T)),
-                jax.random.bernoulli(k3, 1.0 - jc.decoder_rnn_dropout, (B, F)))
+        return (jax.random.bernoulli(k1, 1.0 - p_prenet, (B, F // 2)),
+                jax.random.bernoulli(k2, 1.0 - p_attention, (B, T)),
+                jax.random.bernoulli(k3, 1.0 - p_rnn, (B, F)))
 
     if "dropout" in rngs:
         masks = jax.vmap(step)(jax.random.split(rngs["dropout"], M))
         out.update(zip(("prenet", "attention", "rnn"), masks))
     if "postnet_dropout" in rngs:
-        n = jc.postnet_n_convolutions
-        chans = [jc.postnet_embedding_dim] * (n - 1) + [jc.n_mels]
         out["postnet"] = [jax.random.bernoulli(jax.random.fold_in(rngs["postnet_dropout"], i),
-                                               1.0 - jc.postnet_dropout, (B, M, c))
+                                               1.0 - p_postnet, (B, M, c))
                           for i, c in enumerate(chans)]
     if "encoder_dropout" in rngs and video_dim is not None:
-        out["encoder"] = jax.random.bernoulli(rngs["encoder_dropout"],
-                                              1.0 - jc.encoder_feature_dropout, (B, T, video_dim))
+        out["encoder"] = jax.random.bernoulli(rngs["encoder_dropout"], 1.0 - p_encoder,
+                                              (B, T, video_dim))
     return out
 
 
