@@ -23,20 +23,38 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    inference on the trained weights, which must pack the AR weights again
    exactly once and agree with the plain decode; one f32 step on the GPU
    against the same step on the CPU, both held against an f64 step (B=2,
-   same draws), and the f64 step on the GPU against the CPU's.
+   same draws), and the f64 step on the GPU against the CPU's;
+5. the training entry point: a synthetic LRW fixture (128 train and 64
+   test clips of 29 frames, 19456 audio samples, over 8 words) written by
+   the port's ``make_sample_lrw`` in a temporary directory; the loader
+   alone over the train split; ``cli.train.train`` at full width (default
+   Config, bf16 policy, B=64, loader threads ``min(64, os.cpu_count())``)
+   for 6 steps with one eval tick (2 batches of 32 through the AR kernel,
+   M=80) and its checkpoint, one step profiled; 4 steps each with 2 and 4
+   loader threads; a second call that resumes from the checkpoint for 2
+   more steps; the same step on a staged batch (``--reuse_first_batch`` on
+   the 64 test clips); ``cli.evaluate`` on the checkpoint over the test
+   split. Checks:
+   finite losses, the resume's step and best score, ``metrics.jsonl``'s
+   train scalars and ``eval/estoi``, one kernel launch per eval batch, the
+   kernel against its plain version on one eval batch (f32), a finite
+   evaluation, and the device ESTOI against the host's on one batch.
+   Prints the step time with the loader and on the staged batch, the
+   loader's host time per batch and its stalls, the eval tick split into
+   forward, Griffin-Lim and metric, and the idle share of a profiled step.
 
 Timings print with the card's name and power limit. The line before the
 last is a JSON object listing each kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 
-Usage: python3 chip_smoke.py [--profile | --kernel-only | --train-only]
+Usage: python3 chip_smoke.py [--profile | --kernel-only | --train-only | --cli-only]
 
 ``--profile`` adds, for each timed batch and for a train step, the device
 time by kernel of one batch (torch.profiler) and the device's idle share.
 ``--kernel-only`` runs phases 1 and 2 alone at B in {4, 256} (with the
 per-stage times) and prints no result line; ``--train-only`` runs phases 1
-and 4 and prints no result line.
+and 4 and ``--cli-only`` phases 1 and 5, and neither prints a result line.
 """
 
 from __future__ import annotations
@@ -47,6 +65,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -103,6 +122,19 @@ TRAIN_FLOOR = 1e-6
 # statistic and gradient within TRAIN_F64_REL of the tensor's max (plus 1%
 # of the largest of its kind); 7.4e-12 measured, on an encoder gradient
 TRAIN_F64_REL = 1e-9
+# phase 5, the training entry point: the fixture's clips and the runs' steps
+CLI_TRAIN_CLIPS, CLI_TEST_CLIPS = 128, 64
+CLI_SAMPLES = 19456
+CLI_STEPS = 6  # the eval tick at the last; step 1 warms up, the last is profiled
+CLI_RESUMED_STEPS = 2
+CLI_EVAL_BATCHES = 2
+# the step with fewer loader threads than the default min(B, CPU count)
+CLI_THREAD_SWEEP = (2, 4)
+CLI_SWEEP_STEPS = 4
+CLI_WORDS = 8  # the fixture's words, written in parallel
+# the device ESTOI (float64) against the host's on the same waveforms: the
+# bound of tests/test_torch_estoi.py (~4e-11 read on an H100)
+ESTOI_TOL = 1e-5
 
 
 def fail(msg: str):
@@ -673,6 +705,261 @@ def phase_train(cfg, card: str, dev, batch_size: int = TRAIN_B, timed: int = TRA
     train_gpu_vs_cpu(cfg, cpu_model, dev)
 
 
+def _cli_args(root: str, tmp: str, name: str, dev, *extra: str):
+    from lip2speech_torch.cli import train as train_cli
+
+    return train_cli.parse_args([
+        "--root", root, "--device", str(dev), "--batch_size", str(TRAIN_B), "--log_interval", "1",
+        "--eval_batches", str(CLI_EVAL_BATCHES), "--run_dir", os.path.join(tmp, f"run_{name}"),
+        "--ckpt_dir", os.path.join(tmp, f"ckpt_{name}"), *extra])
+
+
+def write_fixture(root: str):
+    """The synthetic LRW fixture: CLI_TRAIN_CLIPS train and CLI_TEST_CLIPS
+    test clips over CLI_WORDS words, the words written in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lip2speech_torch.data import make_sample_lrw
+
+    jobs = [(f"WORD{w}", split, n // CLI_WORDS, 1000 * (split == "test") + w)
+            for split, n in (("train", CLI_TRAIN_CLIPS), ("test", CLI_TEST_CLIPS))
+            for w in range(CLI_WORDS)]
+    with ThreadPoolExecutor(min(len(jobs), os.cpu_count() or 8)) as pool:
+        list(pool.map(lambda j: make_sample_lrw(root, word=j[0], split=j[1], n_clips=j[2],
+                                                n_samples=CLI_SAMPLES, seed=j[3]), jobs))
+
+
+def _overrides(cfg) -> list[str]:
+    """``--override`` arguments that turn the default Config into ``cfg``."""
+    import dataclasses
+
+    from lip2speech_torch.config import Config
+
+    out = []
+    for section in dataclasses.fields(cfg):
+        ours, default = getattr(cfg, section.name), getattr(Config(), section.name)
+        for f in dataclasses.fields(ours):
+            if getattr(ours, f.name) != getattr(default, f.name):
+                out += ["--override", f"{section.name}.{f.name}={getattr(ours, f.name)!r}"]
+    return out
+
+
+def _step_rows(run_dir: str) -> tuple[list[dict], list[dict]]:
+    """(train records, eval records) of a run's metrics.jsonl."""
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [r for r in rows if "total" in r], [r for r in rows if "eval/estoi" in r]
+
+
+def eval_batch_checks(cfg, model, ds, dev, card: str) -> dict:
+    """On the first eval batch (32 test clips, f32 weights): the AR kernel
+    against its plain version at the eval tick's shape (M=80), with their
+    times and the bound; and the device ESTOI against the host's on the
+    waveforms of that batch."""
+    import numpy as np
+    import torch
+
+    from lip2speech_torch.data.collate import collate, prepare_batch, to_device
+    from lip2speech_torch.eval import evaluate
+    from lip2speech_torch.kernels import ar_decode as ar
+    from lip2speech_torch.ops import estoi as estoi_ops
+
+    B = min(32, len(ds))
+    raw = collate([ds[i] for i in range(B)], cfg.data)
+    batch = prepare_batch(to_device(raw, dev), cfg.audio, cfg.data)
+    M = batch["mel"].shape[-1]
+    model.eval()
+    with torch.no_grad():
+        feats = model.encoder(batch["video"])
+        emb = model.vgg_face.inference(batch["faces"][:, 0].permute(0, 3, 1, 2))
+        visual = torch.cat([feats, emb[:, None].expand(-1, feats.shape[1], -1)], -1)
+        dec = model.decoder
+        enc = dec.encode(visual, emb, generator=torch.Generator(device=dev).manual_seed(SEED))
+        p, bos = dec.ar_params(), dec.BOS.reshape(1, -1).expand(B, -1)
+        f32 = torch.float32
+        ref = ar.ar_decode_reference(cfg.model, p, enc, bos, M, f32)
+        got = ar.ar_decode_cuda(cfg.model, p, enc, bos, M, f32)
+        torch.cuda.synchronize(dev)
+        errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+        ms = cuda_ms(lambda: ar.ar_decode_cuda(cfg.model, p, enc, bos, M, f32), reps=5)
+        plain = cuda_ms(lambda: ar.ar_decode_reference(cfg.model, p, enc, bos, M, f32), reps=1)
+    flops, nbytes = ar_decode_work(cfg.model, B, enc["k"].shape[1], enc["content_key"].shape[1],
+                                   M, 4)
+    bms, by = bound_ms(flops, nbytes, "float32")
+    print(f"ar_decode on an eval batch (B={B}, M={M}, f32): max|err| mel {errs[0]:.3e} stop "
+          f"{errs[1]:.3e} attn {errs[2]:.3e} (tol {TOL['float32']}); kernel {ms:.3f} ms, plain "
+          f"{plain:.3f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+    if any(e > t for e, t in zip(errs, TOL["float32"])) or not all(
+            bool(torch.isfinite(g).all()) for g in got):
+        fail("the AR kernel disagrees with its plain version on an eval batch")
+
+    program = evaluate.eval_program(model, cfg, GL_ITERS, "estoi")
+    with torch.no_grad():
+        weights = program.weights()
+        mel = program.forward(batch, weights, SEED)["mel_postnet"]
+        torch.cuda.synchronize(dev)
+        fwd_ms = []
+        for _ in range(3):  # with no loader running
+            t0 = time.perf_counter()
+            program.forward(batch, weights, SEED)
+            torch.cuda.synchronize(dev)
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        wav = program.invert(mel, None, torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize(dev)
+        gl_ms = (time.perf_counter() - t0) * 1e3
+    print(f"eval forward of a batch of {B}, no loader running: {[round(t, 2) for t in fwd_ms]} ms; "
+          f"NNLS + {GL_ITERS} Griffin-Lim iterations {gl_ms:.2f} ms [{card}]")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        dev_scores = program.score(batch["audio"], wav, batch["audio_lengths"]).cpu().numpy()
+        dev_ms = (time.perf_counter() - t0) * 1e3
+    wav_np, gt = wav.cpu().numpy(), raw["audio"]
+    t0 = time.perf_counter()
+    host = np.array([estoi_ops.estoi(gt[i, :n], wav_np[i, :n], cfg.audio.sample_rate)
+                     for i, n in enumerate(raw["audio_lengths"])])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    gap = float(np.abs(dev_scores - host).max())
+    print(f"ESTOI of an eval batch (B={B}): device (float64) {dev_ms:.2f} ms, host {host_ms:.2f} ms; "
+          f"max |device - host| {gap:.3e} (tol {ESTOI_TOL}), mean {host.mean():.4f} [{card}]")
+    if not np.isfinite(dev_scores).all() or gap > ESTOI_TOL:
+        fail("the device ESTOI disagrees with the host's")
+    return {"err": max(errs), "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
+
+
+def phase_cli(cfg, card: str, dev) -> dict:
+    """The training entry point at full width (see the module docstring);
+    returns the AR kernel's eval-path numbers for the kernels line."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from lip2speech_torch.cli import evaluate as eval_cli
+    from lip2speech_torch.cli import train as train_cli
+    from lip2speech_torch.cli.common import load_model
+    from lip2speech_torch.data import Loader, get_dataset
+    from lip2speech_torch.eval.evaluate import evaluate_net
+    from lip2speech_torch.kernels import ar_decode as ar
+
+    print(f"cli: os.cpu_count() {os.cpu_count()}, loader threads {min(TRAIN_B, os.cpu_count() or 8)}")
+    with tempfile.TemporaryDirectory(prefix="lip2speech_cli_") as tmp:
+        root = os.path.join(tmp, "lrw")
+        t0 = time.time()
+        write_fixture(root)
+        print(f"cli: fixture of {CLI_TRAIN_CLIPS} + {CLI_TEST_CLIPS} clips in {time.time() - t0:.1f} s")
+
+        # the loader alone, on an idle host
+        loader = Loader(get_dataset("LRW", root, mode="train", cfg=cfg.data), TRAIN_B, cfg.data,
+                        num_workers=min(TRAIN_B, os.cpu_count() or 8), pin_memory=dev.type == "cuda")
+        for _ in loader:
+            pass
+        st = loader.stats
+        print(f"cli loader alone: {st['batches']} batches, "
+              f"{st['host_s'] / st['batches'] * 1e3:.2f} ms of host time each [{card}]")
+
+        # the main path: train with the loader, one eval tick, a checkpoint
+        ar.launches = 0
+        t0 = time.time()
+        first = train_cli.train(_cli_args(root, tmp, "main", dev, "--max_iters", str(CLI_STEPS),
+                                          "--eval_interval", str(CLI_STEPS),
+                                          "--profile_step", str(CLI_STEPS)), cfg)
+        torch.cuda.synchronize(dev)
+        eval_launches = ar.launches
+        wall = time.time() - t0
+        rows, evals = _step_rows(os.path.join(tmp, "run_main"))
+        ms = [r["step_time"] * 1e3 for r in rows[1:-1]]  # not the warm-up, not the profiled step
+        loader = first["loader"]
+        prof = first["profile"]
+        print(f"cli train B={TRAIN_B}: {len(rows)} steps and an eval tick in {wall:.1f} s; "
+              f"{float(np.median(ms)):.2f} ms per step with the loader (median of steps 2-"
+              f"{CLI_STEPS - 1}: {[round(t, 2) for t in ms]}), losses "
+              f"{[round(r['total'], 3) for r in rows]}, eval ESTOI {first['best_score']:.4f}, "
+              f"ar_decode launches {eval_launches} [{card}]")
+        print(f"cli loader: {loader['batches']} batches, {loader['host_s'] / loader['batches'] * 1e3:.2f} "
+              f"ms of host time each (decode + collate + pin), {loader['stalls']} stalls, "
+              f"{loader['wait_s']:.2f} s waited in all [{card}]")
+        print(f"cli profiled step {CLI_STEPS}: wall {prof['wall_ms']:.2f} ms, device busy "
+              f"{prof['device_ms']:.2f} ms, idle share {prof['idle_share']:.3f}, "
+              f"{prof['launches']:.0f} kernel launches [{card}]")
+        want = {"mel_loss", "postnet_mel_loss", "gate_loss", "KLD", "total", "grad_norm",
+                "tf_ratio", "epoch", "step_time"}
+        if len(rows) != CLI_STEPS or not all(want <= set(r) for r in rows) or len(evals) != 1:
+            fail(f"metrics.jsonl lacks the train scalars or eval/estoi: {len(rows)} steps, "
+                 f"{len(evals)} eval records")
+        if not all(math.isfinite(r[k]) for r in rows for k in want):
+            fail("the CLI's training gave a non-finite loss")
+        eval_batches = min(CLI_EVAL_BATCHES, -(-CLI_TEST_CLIPS // min(32, TRAIN_B)))
+        if eval_launches != eval_batches:
+            fail(f"the eval tick launched the AR kernel {eval_launches} times for "
+                 f"{eval_batches} batches")
+
+        # the same run with fewer loader threads
+        for threads in CLI_THREAD_SWEEP:
+            name = f"threads{threads}"
+            res = train_cli.train(_cli_args(root, tmp, name, dev, "--max_iters",
+                                            str(CLI_SWEEP_STEPS), "--eval_interval", "1000",
+                                            "--num_workers", str(threads)), cfg)
+            sweep, _ = _step_rows(os.path.join(tmp, f"run_{name}"))
+            ms_t = [r["step_time"] * 1e3 for r in sweep[1:]]
+            st = res["loader"]
+            print(f"cli train B={TRAIN_B}, {threads} loader threads: "
+                  f"{float(np.median(ms_t)):.2f} ms per step (steps 2-{CLI_SWEEP_STEPS}: "
+                  f"{[round(t, 2) for t in ms_t]}); loader {st['host_s'] / st['batches'] * 1e3:.2f} "
+                  f"ms of host time a batch, {st['stalls']} stalls, {st['wait_s']:.2f} s waited "
+                  f"[{card}]")
+
+        # resume from the checkpoint
+        second = train_cli.train(_cli_args(root, tmp, "main", dev, "--max_iters",
+                                           str(CLI_STEPS + CLI_RESUMED_STEPS),
+                                           "--eval_interval", "1000"), cfg)
+        rows2, _ = _step_rows(os.path.join(tmp, "run_main"))
+        print(f"cli resume: started at step {second['start_step']} with best score "
+              f"{second['start_best_score']:.4f}, ended at {second['final_step']}; losses "
+              f"{[round(r['total'], 3) for r in rows2[len(rows):]]}")
+        if (second["start_step"] != CLI_STEPS or second["start_best_score"] != first["best_score"]
+                or second["final_step"] != CLI_STEPS + CLI_RESUMED_STEPS
+                or not all(math.isfinite(r["total"]) for r in rows2)):
+            fail("the resumed run did not start where the first one saved")
+
+        # the same step on a staged batch
+        train_cli.train(_cli_args(root, tmp, "staged", dev, "--max_iters", str(CLI_STEPS),
+                                  "--eval_interval", "1000", "--train_split", "test",
+                                  "--reuse_first_batch"), cfg)
+        staged, _ = _step_rows(os.path.join(tmp, "run_staged"))
+        ms_staged = [r["step_time"] * 1e3 for r in staged[1:]]
+        print(f"cli train B={TRAIN_B} on a staged batch: {float(np.median(ms_staged)):.2f} ms per "
+              f"step (median of steps 2-{CLI_STEPS}: {[round(t, 2) for t in ms_staged]}); with the "
+              f"loader {float(np.median(ms)):.2f} ms [{card}]")
+
+        # cli/evaluate on the checkpoint
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            t0 = time.time()
+            eval_cli.main(["--root", root, "--model_path", os.path.join(tmp, "ckpt_main"),
+                           "--device", str(dev), *_overrides(cfg)])
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        print(f"cli evaluate: {json.dumps(line)} in {time.time() - t0:.1f} s")
+        if line.get("n_clips") != CLI_TEST_CLIPS or not math.isfinite(line.get("estoi", math.nan)):
+            fail(f"cli.evaluate printed {line}")
+
+        # the eval tick's split, the kernel and the metrics on one eval batch
+        model, _ = load_model(cfg, os.path.join(tmp, "ckpt_main"), dev)
+        ds = get_dataset("LRW", root, mode="test", cfg=cfg.data)
+        for device_estoi in (False, True):
+            stats = {}
+            t0 = time.perf_counter()
+            evaluate_net(model, ds, cfg, batch_size=32, max_batches=CLI_EVAL_BATCHES,
+                         device_estoi=device_estoi, stats=stats)
+            wall = time.perf_counter() - t0
+            print(f"cli eval tick ({'device' if device_estoi else 'host'} metric), "
+                  f"{stats['batches']} batches of 32 in {wall * 1e3:.2f} ms; ms for each batch: "
+                  + ", ".join(f"{k[:-2]} {[round(x * 1e3, 2) for x in v]}" for k, v in stats.items()
+                              if k.endswith("_s")) + f" [{card}]")
+        return {"launches": eval_launches, **eval_batch_checks(cfg, model, ds, dev, card)}
+
+
 def main() -> int:
     try:
         import torch
@@ -702,9 +989,14 @@ def main() -> int:
         phase_train(cfg, card, dev, profile=profile)
         print(card)
         return 0
+    if "--cli-only" in sys.argv[1:]:
+        phase_cli(cfg, card, dev)
+        print(card)
+        return 0
     results = phase_kernel(cfg, card, dev)
     launches = phase_pipeline(cfg, card, dev, profile=profile)
     phase_train(cfg, card, dev, profile=profile)
+    at_eval = phase_cli(cfg, card, dev)
 
     at_main = results[(MAIN_B, "bfloat16")]
     kernels = [{
@@ -720,6 +1012,13 @@ def main() -> int:
         "bound_by": at_main["bound_by"],
         # no single PyTorch call computes the AR decode
         "library_ms": None,
+        # the eval path (phase 5): launches in the CLI's eval tick; the rest
+        # on one eval batch, B=32, M=80, f32
+        "eval_launches": at_eval["launches"],
+        "eval_max_abs_err": at_eval["err"],
+        "eval_ms": at_eval["ms"],
+        "eval_plain_ms": at_eval["plain_ms"],
+        "eval_bound_ms": at_eval["bound_ms"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

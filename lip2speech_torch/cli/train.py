@@ -1,0 +1,271 @@
+"""Training CLI.
+
+Counterpart of ``lip2speech_tpu/cli/train.py`` on one device: the dataset,
+the AMSGrad train step (``train/train_step.py``), resume from the newest
+checkpoint, the teacher-forcing anneal (+``tf_ratio_step`` every
+``tf_ratio_epochs`` epochs), the eval tick (``eval/evaluate.py``, whose
+decode runs through the AR kernel on the card) with a save when the score
+improves, JSONL / console / TensorBoard logging, and the rewind on a stall.
+
+Not here yet: ``--multihost``, ``--data_parallel`` and ``--model_parallel``
+(ROADMAP.md, queue 4) and ``train.adversarial`` (queue 5).
+
+The loop reads metrics from the device only at log ticks, and, when
+rewinding is on, the previous step's ``notfinite_count`` each step.
+
+Usage: python -m lip2speech_torch.cli.train --dataset LRW --root ... [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from lip2speech_torch.cli.common import add_common_args, common_config, load_model
+from lip2speech_torch.config import Config, TrainConfig
+from lip2speech_torch.data import FaceAugmentation, Loader, get_dataset
+from lip2speech_torch.data.collate import prepare_batch, to_device
+from lip2speech_torch.eval.evaluate import evaluate_net
+from lip2speech_torch.models.layers import resolve_device
+from lip2speech_torch.train import checkpoint as ckpt
+from lip2speech_torch.train.logging_utils import MetricLogger, profile_steps
+from lip2speech_torch.train.train_step import create_train_state, train_step
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        "lip2speech_torch train",
+        description="Train on one device. Multi-host, data- and model-parallel "
+                    "training (--multihost, --data_parallel, --model_parallel of the "
+                    "JAX CLI) are not ported yet: ROADMAP.md, queue 4.")
+    add_common_args(p)
+    p.add_argument("--finetune_model_path", default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--max_iters", type=int, default=None)
+    p.add_argument("--eval_interval", type=int, default=None)
+    p.add_argument("--log_interval", type=int, default=None)
+    p.add_argument("--run_dir", default="runs/default")
+    p.add_argument("--ckpt_dir", default="checkpoints/default")
+    p.add_argument("--eval_batches", type=int, default=2)
+    p.add_argument("--num_workers", type=int, default=None,
+                   help="loader threads; default min(batch size, CPU count)")
+    p.add_argument("--train_split", default="train",
+                   help="corpus split to train on (e.g. 'test' to overfit a fixture)")
+    p.add_argument("--no_augment", action="store_true",
+                   help="turn off the p=0.5 horizontal flip (FaceAugmentation)")
+    p.add_argument("--reuse_first_batch", action="store_true",
+                   help="stage the first batch once and feed it to every step; only "
+                        "for a training set that fits in one batch (the per-step "
+                        "random draws still change with the step)")
+    p.add_argument("--rewind_on_stall", type=int, default=0,
+                   help="when this many consecutive updates were rejected, restore the "
+                        "newest rolling safety checkpoint and continue on a new random "
+                        "stream; 0 = off")
+    p.add_argument("--rewind_lr_decay", type=float, default=1.0,
+                   help="multiply the learning rate by this at every rewind")
+    p.add_argument("--max_rewinds", type=int, default=25)
+    p.add_argument("--cache_decoded_gb", type=float, default=0.0,
+                   help="in-memory budget for decoded clips (LRW only)")
+    p.add_argument("--profile_step", type=int, default=0,
+                   help="profile this step (1-based; 0 = none): the device's busy "
+                        "time, the step's wall time and the idle share go to the log")
+    return p.parse_args(argv)
+
+
+def tf_ratio_at(tc: TrainConfig, epoch: int) -> float:
+    """The teacher-forcing ratio of an epoch: ``tf_ratio_start`` plus
+    ``tf_ratio_step`` every ``tf_ratio_epochs`` epochs, at most 1."""
+    return min(tc.tf_ratio_start + tc.tf_ratio_step * (epoch // tc.tf_ratio_epochs), 1.0)
+
+
+def rewind_seed(seed: int, rewinds: int) -> int:
+    """The step stream's seed after ``rewinds`` rewinds (the run's seed
+    before any)."""
+    if rewinds == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, 7919 + rewinds]).generate_state(1)[0])
+
+
+def _profile_summary(prof, wall_s: float) -> dict:
+    """Device busy time, kernel launches and the idle share of ``wall_s``."""
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    wall_ms = wall_s * 1e3
+    return {"wall_ms": wall_ms, "device_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "launches": float(sum(e.count for e in kernels))}
+
+
+def train(args, cfg: Config | None = None) -> dict:
+    """Runs the loop; returns ``final_step``, ``best_score``, the step and
+    best score it started from, the loader's ``stats`` and, with
+    ``--profile_step``, the ``profile`` summary."""
+    cfg = cfg or common_config(args)
+    tc = cfg.train
+    if tc.adversarial:
+        raise NotImplementedError(
+            "train.adversarial=true needs the critic and its step, which are not ported "
+            "yet: ROADMAP.md, queue 5")
+    device = resolve_device(args.device)
+    batch_size = args.batch_size or tc.batch_size
+    max_iters = args.max_iters or tc.max_iters
+    eval_interval = args.eval_interval or tc.eval_interval
+    log_interval = args.log_interval or tc.log_interval
+
+    ds_kw = {"augmentation": None if args.no_augment else FaceAugmentation()}
+    if args.cache_decoded_gb and args.dataset.upper() == "LRW":
+        ds_kw["cache_bytes"] = int(args.cache_decoded_gb * 2**30)
+    ds = get_dataset(args.dataset, args.root, mode=args.train_split, cfg=cfg.data, **ds_kw)
+    if len(ds) == 0:
+        raise RuntimeError(f"empty dataset at {args.root}")
+    if args.reuse_first_batch and len(ds) > batch_size:
+        raise RuntimeError("--reuse_first_batch requires the whole training set to fit in one "
+                           f"batch (len(ds)={len(ds)} > batch_size={batch_size})")
+    eval_ds = get_dataset(args.dataset, args.root, mode="test", cfg=cfg.data)
+    steps_per_epoch = max(len(ds) // batch_size, 1)
+
+    model, _ = load_model(cfg, args.finetune_model_path or args.model_path, device)
+    state = create_train_state(cfg, model)
+    start_it, best_score = 0, -1.0
+    restored = ckpt.restore_checkpoint(args.ckpt_dir, state)
+    if restored is not None:
+        _, extra = restored
+        start_it = state.step
+        best_score = float(extra.get("best_score", -1.0))
+        print(f"resumed at step {start_it} (best ESTOI {best_score:.4f})")
+    result = {"start_step": start_it, "start_best_score": best_score}
+
+    logger = MetricLogger(args.run_dir)
+    loader = Loader(ds, batch_size, cfg.data, shuffle=True, infinite=True,
+                    num_workers=args.num_workers or min(batch_size, os.cpu_count() or 8),
+                    seed=tc.seed, pin_memory=device.type == "cuda")
+    data_iter = iter(loader)
+    staged = None
+    it = start_it
+    last_saved_step = -1
+
+    # the rewind on a stall: rolling safety checkpoints, restored with a new
+    # random stream when every update is being rejected
+    safety_dir = os.path.join(args.ckpt_dir, "safety")
+    stream_seed = tc.seed
+    rewinds, rewind_depth, last_rewind_it, last_consec = 0, 0, -1, 0.0
+    pending_nfc = None  # the previous step's notfinite_count, on the device
+    if args.rewind_on_stall and not ckpt.available_steps(safety_dir):
+        ckpt.save_checkpoint(safety_dir, max(start_it, 0), state, {"best_score": best_score})
+
+    def do_rewind():
+        nonlocal rewinds, rewind_depth, last_rewind_it, stream_seed
+        steps = ckpt.available_steps(safety_dir)
+        if not steps:
+            raise RuntimeError("rewind requested but no safety checkpoint")
+        # repeated stalls walk back to older safety saves
+        target = steps[max(len(steps) - 1 - rewind_depth, 0)]
+        try:
+            ckpt.restore_checkpoint(safety_dir, state, step=target)
+        except FileNotFoundError as e:
+            left = ckpt.available_steps(safety_dir)
+            if not left:
+                raise RuntimeError("rewind: no safety checkpoint survives") from e
+            target = left[-1]
+            print(f"rewind: requested step missing ({e}); restoring safety step {target}")
+            ckpt.restore_checkpoint(safety_dir, state, step=target)
+        rewinds += 1
+        rewind_depth += 1
+        last_rewind_it = it
+        # the same stream would replay the same draws into the same stall
+        stream_seed = rewind_seed(tc.seed, rewinds)
+        if args.rewind_lr_decay != 1.0:
+            state.opt.cfg = dataclasses.replace(
+                state.opt.cfg, learning_rate=state.opt.cfg.learning_rate * args.rewind_lr_decay)
+        print(f"[{it + 1}] REWIND #{rewinds}: {last_consec:.0f} consecutive rejected steps; "
+              f"restored safety step {target}, lr {state.opt.cfg.learning_rate:.2e}, new stream")
+        logger.scalars(it + 1, {"rewind": float(rewinds), "rewind_target": float(target)})
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    try:
+        for it in range(start_it, max_iters):
+            epoch = it // steps_per_epoch
+            tf_ratio = tf_ratio_at(tc, epoch)
+            profiling = it + 1 == args.profile_step
+            if profiling:
+                sync()
+                t0 = time.perf_counter()
+            with profile_steps() if profiling else contextlib.nullcontext() as prof:
+                if staged is None:
+                    batch = prepare_batch(to_device(next(data_iter), device), cfg.audio, cfg.data)
+                    batch.pop("audio"), batch.pop("audio_lengths")
+                    if args.reuse_first_batch:
+                        staged = batch
+                        data_iter.close()  # no more batches are needed
+                else:
+                    batch = staged
+                metrics = train_step(state, batch, tf_ratio, cfg, seed=stream_seed)
+                if profiling:
+                    sync()
+                    wall = time.perf_counter() - t0
+            if profiling:
+                result["profile"] = _profile_summary(prof, wall)
+                logger.scalars(it + 1, result["profile"], prefix="profile/")
+                print(f"[{it + 1}] profiled step: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in result["profile"].items()))
+
+            if args.rewind_on_stall:
+                if pending_nfc is not None:
+                    last_consec = float(pending_nfc)
+                pending_nfc = metrics.get("notfinite_count")
+                if last_consec >= args.rewind_on_stall and rewinds < args.max_rewinds:
+                    do_rewind()
+                    last_consec = 0.0
+                    pending_nfc = None
+
+            if (it + 1) % log_interval == 0:
+                values = {k: float(v) for k, v in metrics.items()}
+                values["tf_ratio"] = tf_ratio
+                values["epoch"] = epoch
+                logger.scalars(it + 1, values)
+                logger.console(it + 1, values, total_steps=max_iters)
+
+            if (it + 1) % eval_interval == 0:
+                score = evaluate_net(model, eval_ds, cfg, batch_size=min(32, batch_size),
+                                     max_batches=args.eval_batches)
+                logger.scalars(it + 1, {"estoi": score}, prefix="eval/")
+                logger.histograms(it + 1, model.named_parameters())
+                print(f"[{it + 1}] eval ESTOI {score:.4f} (best {best_score:.4f})")
+                if score > best_score:
+                    best_score = score
+                    ckpt.save_checkpoint(args.ckpt_dir, it + 1, state, {"best_score": best_score})
+                    last_saved_step = it + 1
+                if args.rewind_on_stall and pending_nfc is not None:
+                    last_consec = float(pending_nfc)  # this step's, before the safety save
+                    pending_nfc = None
+                if args.rewind_on_stall and last_consec == 0.0:
+                    # a safety save only from a step that was taken
+                    ckpt.save_checkpoint(safety_dir, it + 1, state, {"best_score": best_score})
+                    ckpt.prune_checkpoints(safety_dir, keep=5)
+                    if it - last_rewind_it >= eval_interval:
+                        rewind_depth = 0
+    finally:
+        data_iter.close()
+        logger.close()
+
+    # the final save, unless the eval tick just saved this step
+    if last_saved_step != max_iters:
+        ckpt.save_checkpoint(args.ckpt_dir, max_iters, state, {"best_score": best_score})
+    result.update(final_step=it + 1, best_score=best_score, loader=dict(loader.stats))
+    return result
+
+
+def main(argv=None):
+    train(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -57,10 +57,18 @@ def collate(samples: Sequence[dict], cfg: DataConfig) -> dict[str, np.ndarray]:
 
 
 def to_device(raw: dict, device: str | torch.device | None = None) -> dict[str, torch.Tensor]:
-    """A collated batch as tensors on ``device`` (CUDA unless the caller
-    names another)."""
+    """A collated batch (numpy arrays or tensors) as tensors on ``device``
+    (CUDA unless the caller names another). For the card, host memory that
+    is not page-locked is pinned first, so each copy is asynchronous."""
     dev = resolve_device(device)
-    return {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in raw.items()}
+
+    def put(v):
+        v = torch.as_tensor(v)
+        if dev.type == "cuda" and v.device.type == "cpu" and not v.is_pinned():
+            v = v.pin_memory()
+        return v.to(dev, non_blocking=True)
+
+    return {k: put(v) for k, v in raw.items()}
 
 
 def prepare_batch(raw: dict[str, torch.Tensor], audio_cfg: AudioConfig = AudioConfig(),

@@ -6,14 +6,20 @@ conv banks, the gumbel content codebook, the AR loop and the postnet.
 
 Two forwards, as in the JAX ``Decoder.__call__``:
 
-- free-running inference (``mels=None``): eval-mode BatchNorm, no dropout;
-  the AR loop is ``kernels.ar_decode``, the CUDA kernel on the GPU and its
-  plain step loop on the CPU;
+- free-running (``mels=None``): eval-mode BatchNorm, no dropout; the AR
+  loop is ``kernels.ar_decode``, the CUDA kernel on the GPU and its plain
+  step loop on the CPU;
 - teacher-forced (``mels`` given, ``decoder.py:426-518``): a plain PyTorch
   step loop over the scan step (``_build_step``, ``decoder.py:230-313``)
   with autograd through it. In train mode its BatchNorms train by flax's
   rule and dropout applies; every random draw is an input (``draws``) or
   comes from the caller's ``torch.Generator``.
+
+The evaluation forward (eval mode, ``mels`` given, ``tf_ratio >= 1``) uses
+no teacher frame: a step reads one only when its uniform draw exceeds
+``tf_ratio`` (``decoder.py:266``), and with no dropout it is the
+free-running decode cut to the mels' ``M`` steps. It runs through
+``ar_decode`` with ``n_steps=M``, without gradients.
 """
 
 from __future__ import annotations
@@ -292,8 +298,11 @@ class Decoder(nn.Module):
         if gumbel is not None:
             draws.setdefault("gumbel", gumbel)
         enc = self.encode(encoder_outputs, face_features, draws.get("gumbel"), generator)
+        B = encoder_outputs.shape[0]
         if mels is None:
-            out = self._free_running(enc, encoder_outputs.shape[0])
+            out = self._free_running(enc, B, self.cfg.max_decoder_steps)
+        elif not self.training and float(tf_ratio) >= 1.0:
+            out = self._free_running(enc, B, mels.shape[-1])
         else:
             out = self._teacher_forced(enc, mels, tf_ratio, draws, generator)
         out["face_features"] = face_features
@@ -304,11 +313,11 @@ class Decoder(nn.Module):
         out["lengths"] = torch.where(fired.any(dim=1), first, torch.full_like(first, M))
         return out
 
-    def _free_running(self, enc: dict, B: int) -> dict:
+    def _free_running(self, enc: dict, B: int, n_steps: int) -> dict:
         cfg = self.cfg
         bos = self.BOS.reshape(1, -1).expand(B, -1)
         weight_dtype = self.fc_out.linear_layer.weight.dtype
-        mels, stops, attn = ar_decode(cfg, self.ar_params(), enc, bos, cfg.max_decoder_steps,
+        mels, stops, attn = ar_decode(cfg, self.ar_params(), enc, bos, n_steps,
                                       weight_dtype=weight_dtype)
         outputs = mels.permute(1, 2, 0)  # (B, n_mels, M) f32
         post = self.postnet(outputs.to(weight_dtype)).float() + outputs

@@ -143,13 +143,15 @@ def guard_batch_stats(cfg: Config, grads_ok: torch.Tensor, new_stats: dict,
 
 
 def train_step(state: TrainState, batch: dict, tf_ratio, cfg: Config,
-               draws: dict | None = None) -> dict[str, torch.Tensor]:
+               draws: dict | None = None, seed: int | None = None) -> dict[str, torch.Tensor]:
     """One optimisation step, in place on ``state``. Draws absent from
-    ``draws`` come from ``step_generator(cfg.train.seed, state.step)``.
+    ``draws`` come from ``step_generator(seed, state.step)``, ``seed``
+    defaulting to ``cfg.train.seed``.
     Returns the metrics as 0-d tensors on the device: the losses,
     ``grad_norm`` (global norm of the raw gradients) and, when updates are
     guarded, ``notfinite_count``. Nothing waits for the device."""
-    gen = step_generator(cfg.train.seed, state.step, batch["mel"].device)
+    seed = cfg.train.seed if seed is None else seed
+    gen = step_generator(seed, state.step, batch["mel"].device)
     losses, new_stats, grads = loss_and_grad(state, batch, tf_ratio, cfg, draws, gen)
     with record_function("train.optimizer"):
         info = state.opt.step(grads)

@@ -18,6 +18,9 @@ from lip2speech_tpu.models.decoder import Decoder as JDecoder
 from lip2speech_tpu.ops.pallas_decoder import pallas_ar_decode
 from lip2speech_torch.kernels import ar_decode as ar
 from torch_port_common import fill_tree, small_configs, t, to_plain
+from torch_port_common import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 PALLAS_STEPS = 8
 

@@ -60,6 +60,22 @@ def test_kernel_matches_plain_version(B, weight_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("weight_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_the_eval_tick_shape(weight_dtype):
+    """The training run's eval tick decodes B=32 clips for the mels' 80
+    frames, more steps than max_decoder_steps (the positions extend)."""
+    p, enc, bos = decoder_inputs(32)
+    with torch.no_grad():
+        want = ar.ar_decode_reference(CFG, p, enc, bos, 80, weight_dtype)
+        got = ar.ar_decode(CFG, p, enc, bos, 80, weight_dtype)
+        torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.shape[0] == 80 and bool(torch.isfinite(g).all())
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) < TOL[weight_dtype]
+
+
+@pytest.mark.cuda
 def test_unchanged_weights_are_packed_once():
     p, enc, bos = decoder_inputs(4)
     with torch.no_grad():

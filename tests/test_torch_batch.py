@@ -32,6 +32,9 @@ from lip2speech_torch.data.collate import collate, prepare_batch, to_device
 from lip2speech_torch.models.layers import BatchNorm1d, BatchNorm2d, BatchNorm3d
 from lip2speech_torch.ops import mel, stft
 from lip2speech_torch.train.losses import lip2speech_loss
+from torch_port_common import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DATA = dict(max_video_frames=6, max_audio_samples=4000, mouth_size=(16, 16), face_size=(20, 20))
 

@@ -25,6 +25,9 @@ from lip2speech_torch.train.checkpoint import (available_steps, prune_checkpoint
                                                restore_checkpoint, save_checkpoint)
 from lip2speech_torch.train.train_step import create_train_state, train_step
 from torch_port_common import small_configs
+from torch_port_common import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, T, M = 2, 8, 12
 

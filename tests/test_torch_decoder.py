@@ -20,6 +20,9 @@ from lip2speech_torch import weights
 from lip2speech_torch.models import layers
 from lip2speech_torch.models.decoder import Decoder, adaptive_avg_pool_matrix
 from torch_port_common import fill_tree, small_configs, t, to_plain
+from torch_port_common import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 AR_TOL = dict(atol=2e-4, rtol=1e-3)
 

@@ -20,6 +20,9 @@ from lip2speech_torch.ops import griffin_lim as gl
 from lip2speech_torch.ops import mel
 from lip2speech_torch.ops import stft
 from torch_port_common import t
+from torch_port_common import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ACFG, JACFG = AudioConfig(), JAudioConfig()
 

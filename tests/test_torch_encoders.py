@@ -22,6 +22,9 @@ from lip2speech_torch.models.shufflenet import channel_shuffle
 from lip2speech_torch.models.video import VideoExtractor
 from lip2speech_torch.ops import image
 from torch_port_common import fill_tree, small_configs, t, to_plain
+from torch_port_common import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _port_state(v, module: str) -> dict:

@@ -25,6 +25,9 @@ from lip2speech_tpu import config as jconfig
 from lip2speech_tpu.train.train_step import make_optimizer as j_make_optimizer
 from lip2speech_torch import config as tconfig
 from lip2speech_torch.train.optim import AMSGrad
+from torch_port_common import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SHAPES = {"encoder": {"a": (3, 4), "b": (5,)}, "decoder": {"c": (2, 3, 3), "d": (7,)},
           "vgg_face": {"e": (4,)}}

@@ -22,6 +22,9 @@ from lip2speech_torch.eval import long_video
 from lip2speech_torch.models.lip2speech import Lip2Speech, init_random_
 from lip2speech_torch.ops.griffin_lim import mel_to_audio
 from torch_port_common import fill_tree, small_configs, t, to_plain
+from torch_port_common import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GL_ITERS = 2
 B, T = 2, 10

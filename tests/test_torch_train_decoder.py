@@ -38,6 +38,9 @@ from lip2speech_torch.train.losses import lip2speech_loss
 from lip2speech_torch.train.train_step import batch_norms
 from torch_port_common import (FAST_COMPILE, fill_tree, grads_by_torch_name, jax_draws,
                                rel_err, small_configs, t, to_plain)
+from torch_port_common import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, T, M = 2, 14, 12
 OUT_TOL = dict(atol=2e-4, rtol=1e-3)

@@ -67,6 +67,9 @@ from lip2speech_torch.models.shufflenet import WIDTH_CHANNELS
 from lip2speech_torch.train.train_step import create_train_state, loss_and_grad, train_step
 from torch_port_common import (FAST_COMPILE, content_slots, fill_tree, grads_by_torch_name,
                                jax_draws, jax_step_keys, rel_err, small_configs, to_plain)
+from torch_port_common import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, T, M, HW = 2, 8, 12, 32
 STEPS = 3

@@ -24,6 +24,9 @@ from lip2speech_torch import weights
 from lip2speech_torch.config import ModelConfig
 from lip2speech_torch.models.lip2speech import Lip2Speech
 from torch_port_common import fill_tree, small_configs, to_plain
+from torch_port_common import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -95,7 +98,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import lip2speech_torch.kernels.ar_decode, lip2speech_torch.weights\n"
         "import lip2speech_torch.train.checkpoint, lip2speech_torch.train.losses\n"
         "import lip2speech_torch.train.optim, lip2speech_torch.train.train_step\n"
-        "import lip2speech_torch.data.collate\n"
+        "import lip2speech_torch.data.collate, lip2speech_torch.data\n"
+        "import lip2speech_torch.cli.train, lip2speech_torch.cli.evaluate\n"
+        "import lip2speech_torch.eval.evaluate, lip2speech_torch.eval.metrics\n"
+        "import lip2speech_torch.ops.estoi\n"
         "banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lip2speech_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not bad, bad\n"

@@ -13,6 +13,7 @@ import functools
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from lip2speech_tpu import config as jcfg
@@ -166,3 +167,13 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     scale = float(want.abs().max()) or 1.0
     return float((got - want).abs().max()) / scale
 
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one thread for a module's tests: test processes run side by
+    side, and small ops spread over every core's thread are many times
+    slower when the cores are shared."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
