@@ -41,25 +41,46 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    evaluation, and the device ESTOI against the host's on one batch.
    Prints the step time with the loader and on the staged batch, the
    loader's host time per batch and its stalls, the eval tick split into
-   forward, Griffin-Lim and metric, and the idle share of a profiled step.
+   forward, Griffin-Lim and metric, and the idle share of a profiled step;
+6. adversarial training (WGAN critic): ``cli.train`` with
+   ``train.adversarial=true`` on phase 5's fixture at full width (default
+   Config, bf16 policy, B=64) for 6 steps with one eval tick through the AR
+   kernel, then 6 adversarial and 6 plain steps each on a staged batch
+   (``--reuse_first_batch`` on the test split). Checks: ``g_loss``,
+   ``g_d_fm_loss`` and ``d_loss`` in ``metrics.jsonl``, every value finite,
+   ``d_loss`` moving, every critic parameter within 0.01, one kernel launch
+   per eval batch; and one f32 critic step and the generator terms (with
+   their gradient to the fake mel) on the GPU against the same on the CPU
+   (``ADV_*``). Prints the adversarial and the plain staged step's ms, the
+   critic step's ms alone, the peak memory and the eval tick's launches;
+7. the demo and long-video entry points at full width on a fixture of 4
+   test clips: ``cli.demo`` with ``--encoding face`` and ``--encoding voice``
+   (2 clips each, B=1, 300 decoder steps, 64 Griffin-Lim iterations) and
+   ``cli.synthesize --from_lrw --n_clips 4`` (one video of 4 clips, its
+   chunks decoded as one batch). Checks: every file written, every
+   waveform finite and not empty, one kernel launch per clip (per video)
+   and one weight pack per run. Prints ms per clip.
 
 Timings print with the card's name and power limit. The line before the
 last is a JSON object listing each kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 
-Usage: python3 chip_smoke.py [--profile | --kernel-only | --train-only | --cli-only]
+Usage: python3 chip_smoke.py [--profile | --kernel-only | --train-only | --cli-only |
+                              --adv-only | --demo-only]
 
 ``--profile`` adds, for each timed batch and for a train step, the device
 time by kernel of one batch (torch.profiler) and the device's idle share.
 ``--kernel-only`` runs phases 1 and 2 alone at B in {4, 256} (with the
 per-stage times) and prints no result line; ``--train-only`` runs phases 1
-and 4 and ``--cli-only`` phases 1 and 5, and neither prints a result line.
+and 4, ``--cli-only`` phases 1 and 5, ``--adv-only`` phases 1 and 6 and
+``--demo-only`` phases 1 and 7, and none of them prints a result line.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -135,6 +156,20 @@ CLI_WORDS = 8  # the fixture's words, written in parallel
 # the device ESTOI (float64) against the host's on the same waveforms: the
 # bound of tests/test_torch_estoi.py (~4e-11 read on an H100)
 ESTOI_TOL = 1e-5
+# phase 6: one f32 critic step (TF32 off) and the generator terms on the GPU
+# against the CPU, same critic, mels, speaker embedding and patch (B=8, 80
+# frames): the same products summed in another order, which the CPU tests
+# hold between the port and JAX at the same bounds: the critic's loss and
+# the generator terms rtol ADV_RTOL (plus 1e-6), the gradient to the fake
+# mel and the new statistics within ADV_RTOL of the tensor's max; an RMSprop
+# step moves an entry by up to lr * sqrt(10) either way, so the parameters
+# are held by their change: the same sign on ADV_SIGN of the entries the
+# CPU moved by more than lr / 2, and within ADV_DELTA in L2 norm
+ADV_RTOL, ADV_SIGN, ADV_DELTA = 1e-4, 0.999, 1e-3
+ADV_B = 8
+ADV_TIMED = 5
+# phase 7: the demo's clips for each encoding, and synthesize's clips
+DEMO_CLIPS, SYNTH_CLIPS = 2, 4
 
 
 def fail(msg: str):
@@ -501,7 +536,6 @@ def train_gpu_vs_cpu(cfg, cpu_model, dev):
     error comes from, it also prints the f32 steps against the free f64
     step, the GPU's with cuDNN limited to deterministic algorithms and with
     cuDNN off too."""
-    import dataclasses
 
     import torch
 
@@ -731,8 +765,6 @@ def write_fixture(root: str):
 
 def _overrides(cfg) -> list[str]:
     """``--override`` arguments that turn the default Config into ``cfg``."""
-    import dataclasses
-
     from lip2speech_torch.config import Config
 
     out = []
@@ -960,6 +992,214 @@ def phase_cli(cfg, card: str, dev) -> dict:
         return {"launches": eval_launches, **eval_batch_checks(cfg, model, ds, dev, card)}
 
 
+def adversarial_gpu_vs_cpu(cfg, dev, card: str) -> float:
+    """One f32 critic step and the generator terms (with their gradient to
+    the fake mel) on the GPU against the same on the CPU; fails beyond the
+    ``ADV_*`` bounds. Returns the critic step's ms alone on the card at the
+    training shape (B=64, 80 frames; CUDA events, mean of ``ADV_TIMED``
+    steps after one warm-up)."""
+    import torch
+
+    from lip2speech_torch.train.adversarial import (CriticState, RMSprop, critic_step,
+                                                    generator_terms, init_critic)
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    T = MEL_FRAMES
+    real = torch.randn(ADV_B, cfg.model.n_mels, T, generator=gen) - 5.0
+    fake = real + torch.randn(ADV_B, cfg.model.n_mels, T, generator=gen)
+    spk = torch.relu(torch.randn(ADV_B, cfg.model.face_embedding_dim, generator=gen))
+    spk = spk / spk.norm(dim=-1, keepdim=True)
+    patch = (torch.tensor(51), torch.tensor(25))  # start > T - P: the rolled slice
+    cpu = init_critic(cfg, torch.Generator().manual_seed(SEED))
+    start = {k: v.clone() for k, v in cpu.disc.state_dict().items()}
+
+    def run(critic, device):
+        x = [v.to(device) for v in (real, fake, spk)]
+        p = tuple(v.to(device) for v in patch)
+        f = x[1].clone().requires_grad_(True)
+        terms = generator_terms(critic, x[0], f, x[2], p)
+        (grad,) = torch.autograd.grad(terms["g_loss"] + terms["g_d_fm_loss"], f)
+        d = critic_step(critic, x[0], x[1], x[2], p)
+        return ({k: float(v) for k, v in terms.items()} | {"d_loss": float(d)}, grad.cpu(),
+                {k: v.cpu() for k, v in critic.disc.state_dict().items()})
+
+    disc = copy.deepcopy(cpu.disc).to(dev)
+    gpu = CriticState(disc, RMSprop(cfg.train.adversarial_critic_lr, disc.parameters()))
+    want, gwant, swant = run(cpu, "cpu")
+    got, ggot, sgot = run(gpu, dev)
+    worst = {}
+    for k, w in want.items():
+        worst[k] = abs(got[k] - w) / (ADV_RTOL * abs(w) + 1e-6)
+    scale = float(gwant.abs().max()) or 1.0
+    worst["grad"] = float((ggot - gwant).abs().max()) / scale / ADV_RTOL
+    sign, delta = 1.0, 0.0
+    for k, w in swant.items():
+        if "running_" in k:
+            worst[k] = float((sgot[k] - w).abs().max()) / (float(w.abs().max()) or 1.0) / ADV_RTOL
+            continue
+        if float(sgot[k].abs().max()) > 0.01:
+            fail(f"the GPU critic's {k} is not clamped to 0.01")
+        dc, dg = (w - start[k]).double(), (sgot[k] - start[k]).double()
+        moved = dc.abs() > cfg.train.adversarial_critic_lr / 2
+        if moved.any():
+            sign = min(sign, float((torch.sign(dg[moved]) == torch.sign(dc[moved])).double().mean()))
+            delta = max(delta, float((dg - dc).norm() / dc.norm()))
+    name = max(worst, key=worst.get)
+    print(f"adversarial f32, GPU vs CPU (B={ADV_B}, {T} frames): d_loss {got['d_loss']:.6e} vs "
+          f"{want['d_loss']:.6e}, g_loss {got['g_loss']:.6e} vs {want['g_loss']:.6e}, g_d_fm_loss "
+          f"{got['g_d_fm_loss']:.6e} vs {want['g_d_fm_loss']:.6e}; worst {name} at "
+          f"{worst[name]:.3f} of its tolerance (rtol {ADV_RTOL}); critic change: same sign on "
+          f"{sign:.5f} of moved entries (tol {ADV_SIGN}), L2 {delta:.3e} (tol {ADV_DELTA})")
+    if worst[name] > 1.0 or sign < ADV_SIGN or delta > ADV_DELTA:
+        fail("the adversarial step on the GPU disagrees with the CPU")
+
+    # the critic step alone at the training shape: B=64, 80 frames, on the card
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (TRAIN_B, cfg.model.n_mels, T)
+    x = (torch.randn(shape, generator=g, device=dev) - 5.0,
+         torch.randn(shape, generator=g, device=dev) - 4.0,
+         torch.rand(TRAIN_B, cfg.model.face_embedding_dim, generator=g, device=dev))
+    p = tuple(v.to(dev) for v in patch)
+    return cuda_ms(lambda: critic_step(gpu, *x, p), reps=ADV_TIMED)
+
+
+def phase_adversarial(cfg, card: str, dev) -> dict:
+    """Adversarial training through the CLI at full width (see the module
+    docstring); returns the AR kernel's launches in its eval tick."""
+    import numpy as np
+    import torch
+
+    from lip2speech_torch.cli import train as train_cli
+    from lip2speech_torch.kernels import ar_decode as ar
+
+    adv_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, adversarial=True))
+    with tempfile.TemporaryDirectory(prefix="lip2speech_adv_") as tmp:
+        root = os.path.join(tmp, "lrw")
+        t0 = time.time()
+        write_fixture(root)
+        print(f"adversarial: fixture of {CLI_TRAIN_CLIPS} + {CLI_TEST_CLIPS} clips in "
+              f"{time.time() - t0:.1f} s")
+
+        # the main path: adversarial steps with the loader, one eval tick
+        torch.cuda.reset_peak_memory_stats(dev)
+        ar.launches = 0
+        t0 = time.time()
+        res = train_cli.train(_cli_args(root, tmp, "adv", dev, "--max_iters", str(CLI_STEPS),
+                                        "--eval_interval", str(CLI_STEPS)), adv_cfg)
+        torch.cuda.synchronize(dev)
+        eval_launches = ar.launches
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        rows, evals = _step_rows(os.path.join(tmp, "run_adv"))
+        ms = [r["step_time"] * 1e3 for r in rows[1:-1]]
+        print(f"adversarial cli B={TRAIN_B}: {len(rows)} steps and an eval tick in {wall:.1f} s; "
+              f"{float(np.median(ms)):.2f} ms per step with the loader (steps 2-{CLI_STEPS - 1}: "
+              f"{[round(t, 2) for t in ms]}); d_loss {[round(r['d_loss'], 6) for r in rows]}, "
+              f"g_loss {[round(r['g_loss'], 6) for r in rows]}, g_d_fm_loss "
+              f"{[round(r['g_d_fm_loss'], 4) for r in rows]}, eval ESTOI {res['best_score']:.4f}, "
+              f"ar_decode launches {eval_launches}, peak memory {peak:.2f} GiB [{card}]")
+        want = {"g_loss", "g_d_fm_loss", "d_loss", "total", "grad_norm", "notfinite_count"}
+        if len(rows) != CLI_STEPS or not all(want <= set(r) for r in rows) or len(evals) != 1:
+            fail(f"metrics.jsonl lacks the adversarial scalars or eval/estoi: {len(rows)} steps, "
+                 f"{len(evals)} eval records")
+        if not all(math.isfinite(v) for r in rows + evals for v in r.values()):
+            fail("the adversarial run logged a non-finite value")
+        if len({r["d_loss"] for r in rows}) < 2:
+            fail("the critic's loss did not move")
+        critic = res["critic"].disc
+        peak_w = max(float(p.abs().max()) for p in critic.parameters())
+        n_params = sum(p.numel() for p in critic.parameters())
+        print(f"adversarial critic: {n_params} parameters, max |w| {peak_w:.6f} (clamp 0.01)")
+        if peak_w > 0.01:
+            fail(f"a critic parameter left the 0.01 clamp: {peak_w}")
+        eval_batches = min(CLI_EVAL_BATCHES, -(-CLI_TEST_CLIPS // min(32, TRAIN_B)))
+        if eval_launches != eval_batches:
+            fail(f"the adversarial eval tick launched the AR kernel {eval_launches} times for "
+                 f"{eval_batches} batches")
+
+        # the adversarial and the plain step on a staged batch, in this process
+        staged = {}
+        for name, run_cfg in (("adv_staged", adv_cfg), ("plain_staged", cfg)):
+            torch.cuda.reset_peak_memory_stats(dev)
+            train_cli.train(_cli_args(root, tmp, name, dev, "--max_iters", str(CLI_STEPS),
+                                      "--eval_interval", "1000", "--train_split", "test",
+                                      "--reuse_first_batch"), run_cfg)
+            steps, _ = _step_rows(os.path.join(tmp, f"run_{name}"))
+            staged[name] = ([r["step_time"] * 1e3 for r in steps[1:]],
+                            torch.cuda.max_memory_allocated(dev) / 2**30)
+        (adv_ms, adv_peak), (plain_ms, plain_peak) = staged["adv_staged"], staged["plain_staged"]
+        print(f"adversarial step B={TRAIN_B} on a staged batch: {float(np.median(adv_ms)):.2f} ms "
+              f"(steps 2-{CLI_STEPS}: {[round(t, 2) for t in adv_ms]}), peak {adv_peak:.2f} GiB; "
+              f"plain step {float(np.median(plain_ms)):.2f} ms ({[round(t, 2) for t in plain_ms]}), "
+              f"peak {plain_peak:.2f} GiB [{card}]")
+
+    critic_ms = adversarial_gpu_vs_cpu(cfg, dev, card)
+    print(f"critic step alone (B={TRAIN_B}, {MEL_FRAMES} frames, f32): {critic_ms:.3f} ms by CUDA "
+          f"events [{card}]")
+    return {"launches": eval_launches}
+
+
+def phase_demo(cfg, card: str, dev) -> dict:
+    """The demo and long-video entry points at full width (see the module
+    docstring); returns the AR kernel's launches on each."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from lip2speech_torch.cli import demo, synthesize
+    from lip2speech_torch.data import make_sample_lrw
+    from lip2speech_torch.kernels import ar_decode as ar
+
+    def check_wav(path: str):
+        if not os.path.exists(path):
+            fail(f"{path} was not written")
+        sr, wav = wavfile.read(path)
+        if sr != cfg.audio.sample_rate or len(wav) == 0 or not np.isfinite(wav).all():
+            fail(f"{path}: {len(wav)} samples at {sr} Hz, finite {np.isfinite(wav).all()}")
+        return len(wav)
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="lip2speech_demo_") as tmp:
+        root = os.path.join(tmp, "lrw")
+        make_sample_lrw(root, split="test", n_clips=SYNTH_CLIPS, n_samples=CLI_SAMPLES)
+        for encoding in ("face", "voice"):
+            out = os.path.join(tmp, encoding)
+            ar.launches, packs = 0, ar.packs
+            t0 = time.time()
+            clips = demo.main(["--root", root, "--device", str(dev), "--encoding", encoding,
+                               "--n_clips", str(DEMO_CLIPS), "--out", out, *_overrides(cfg)])
+            launches[encoding], packed = ar.launches, ar.packs - packs
+            wall = time.time() - t0
+            files = set(os.listdir(out))
+            for i in range(DEMO_CLIPS):
+                lengths = [check_wav(os.path.join(out, f"clip{i}_{k}.wav"))
+                           for k in ("gt", "gt_gl", "pred")]
+                for png in ("mel_predicted", "mel_target", "alignment", "gate"):
+                    if f"{png}_{i}.png" not in files:
+                        fail(f"the demo did not write {png}_{i}.png")
+            print(f"demo --encoding {encoding}: {len(clips)} clips in {wall:.1f} s (model set-up "
+                  f"included); ms per clip {[round(c['ms'], 2) for c in clips]}; stop steps "
+                  f"{[c['stop_step'] for c in clips]}; last clip's wavs {lengths} samples; "
+                  f"ar_decode launches {launches[encoding]}, weight packs {packed} [{card}]")
+            if len(clips) != DEMO_CLIPS or launches[encoding] != DEMO_CLIPS or packed != 1:
+                fail(f"the demo ({encoding}) ran {len(clips)} clips with {launches[encoding]} "
+                     f"kernel launches and {packed} weight packs")
+
+        path = os.path.join(tmp, "synth.wav")
+        ar.launches, packs = 0, ar.packs
+        t0 = time.time()
+        wav = synthesize.main(["--from_lrw", root, "--n_clips", str(SYNTH_CLIPS), "--out", path,
+                               "--device", str(dev), *_overrides(cfg)])
+        launches["synthesize"], packed = ar.launches, ar.packs - packs
+        n = check_wav(path)
+        print(f"synthesize --from_lrw --n_clips {SYNTH_CLIPS}: {n} samples in "
+              f"{(time.time() - t0) * 1e3:.2f} ms (model set-up included), ar_decode launches "
+              f"{launches['synthesize']}, weight packs {packed} [{card}]")
+        if n != len(wav) or launches["synthesize"] != 1 or packed != 1:
+            fail(f"synthesize wrote {n} samples with {launches['synthesize']} kernel launches and "
+                 f"{packed} weight packs")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -993,10 +1233,20 @@ def main() -> int:
         phase_cli(cfg, card, dev)
         print(card)
         return 0
+    if "--adv-only" in sys.argv[1:]:
+        phase_adversarial(cfg, card, dev)
+        print(card)
+        return 0
+    if "--demo-only" in sys.argv[1:]:
+        phase_demo(cfg, card, dev)
+        print(card)
+        return 0
     results = phase_kernel(cfg, card, dev)
     launches = phase_pipeline(cfg, card, dev, profile=profile)
     phase_train(cfg, card, dev, profile=profile)
     at_eval = phase_cli(cfg, card, dev)
+    at_adv = phase_adversarial(cfg, card, dev)
+    at_demo = phase_demo(cfg, card, dev)
 
     at_main = results[(MAIN_B, "bfloat16")]
     kernels = [{
@@ -1019,6 +1269,12 @@ def main() -> int:
         "eval_ms": at_eval["ms"],
         "eval_plain_ms": at_eval["plain_ms"],
         "eval_bound_ms": at_eval["bound_ms"],
+        # launches on the later entry points: the adversarial CLI's eval tick
+        # (phase 6), the demo's clips by encoding and one long video (phase 7)
+        "adversarial_eval_launches": at_adv["launches"],
+        "demo_face_launches": at_demo["face"],
+        "demo_voice_launches": at_demo["voice"],
+        "synthesize_launches": at_demo["synthesize"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

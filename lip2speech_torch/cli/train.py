@@ -7,8 +7,14 @@ checkpoint, the teacher-forcing anneal (+``tf_ratio_step`` every
 decode runs through the AR kernel on the card) with a save when the score
 improves, JSONL / console / TensorBoard logging, and the rewind on a stall.
 
+With ``--override train.adversarial=true`` each step is the combined
+generator + WGAN critic step (``train/adversarial.py``). The critic starts
+from a generator seeded by ``train.seed + 17``, at the start of every run,
+a resumed one too: it is not checkpointed. The rewind on a stall is
+refused with it, since the safety checkpoints would hold no critic.
+
 Not here yet: ``--multihost``, ``--data_parallel`` and ``--model_parallel``
-(ROADMAP.md, queue 4) and ``train.adversarial`` (queue 5).
+(ROADMAP.md, queue 4).
 
 The loop reads metrics from the device only at log ticks, and, when
 rewinding is on, the previous step's ``notfinite_count`` each step.
@@ -34,6 +40,7 @@ from lip2speech_torch.data.collate import prepare_batch, to_device
 from lip2speech_torch.eval.evaluate import evaluate_net
 from lip2speech_torch.models.layers import resolve_device
 from lip2speech_torch.train import checkpoint as ckpt
+from lip2speech_torch.train.adversarial import adversarial_train_step, init_critic
 from lip2speech_torch.train.logging_utils import MetricLogger, profile_steps
 from lip2speech_torch.train.train_step import create_train_state, train_step
 
@@ -103,14 +110,18 @@ def _profile_summary(prof, wall_s: float) -> dict:
 
 def train(args, cfg: Config | None = None) -> dict:
     """Runs the loop; returns ``final_step``, ``best_score``, the step and
-    best score it started from, the loader's ``stats`` and, with
-    ``--profile_step``, the ``profile`` summary."""
+    best score it started from, the loader's ``stats``, the ``critic``
+    (adversarial mode, else None) and, with ``--profile_step``, the
+    ``profile`` summary."""
     cfg = cfg or common_config(args)
     tc = cfg.train
-    if tc.adversarial:
-        raise NotImplementedError(
-            "train.adversarial=true needs the critic and its step, which are not ported "
-            "yet: ROADMAP.md, queue 5")
+    if args.rewind_on_stall and tc.adversarial:
+        # the safety checkpoints hold no critic: a rewind would roll the
+        # generator back against the critic that saw the divergence
+        raise RuntimeError(
+            "--rewind_on_stall is unsupported with train.adversarial=true: "
+            "the rolling safety checkpoint does not include the critic "
+            "params/optimizer. Disable one of the two.")
     device = resolve_device(args.device)
     batch_size = args.batch_size or tc.batch_size
     max_iters = args.max_iters or tc.max_iters
@@ -139,6 +150,8 @@ def train(args, cfg: Config | None = None) -> dict:
         best_score = float(extra.get("best_score", -1.0))
         print(f"resumed at step {start_it} (best ESTOI {best_score:.4f})")
     result = {"start_step": start_it, "start_best_score": best_score}
+    critic = (init_critic(cfg, torch.Generator().manual_seed(tc.seed + 17), device)
+              if tc.adversarial else None)
 
     logger = MetricLogger(args.run_dir)
     loader = Loader(ds, batch_size, cfg.data, shuffle=True, infinite=True,
@@ -207,7 +220,11 @@ def train(args, cfg: Config | None = None) -> dict:
                         data_iter.close()  # no more batches are needed
                 else:
                     batch = staged
-                metrics = train_step(state, batch, tf_ratio, cfg, seed=stream_seed)
+                if critic is None:
+                    metrics = train_step(state, batch, tf_ratio, cfg, seed=stream_seed)
+                else:
+                    metrics = adversarial_train_step(state, critic, batch, tf_ratio, cfg,
+                                                     seed=stream_seed)
                 if profiling:
                     sync()
                     wall = time.perf_counter() - t0
@@ -259,7 +276,8 @@ def train(args, cfg: Config | None = None) -> dict:
     # the final save, unless the eval tick just saved this step
     if last_saved_step != max_iters:
         ckpt.save_checkpoint(args.ckpt_dir, max_iters, state, {"best_score": best_score})
-    result.update(final_step=it + 1, best_score=best_score, loader=dict(loader.stats))
+    result.update(final_step=it + 1, best_score=best_score, loader=dict(loader.stats),
+                  critic=critic)
     return result
 
 

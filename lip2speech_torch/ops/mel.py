@@ -2,7 +2,8 @@
 
 Counterpart of ``lip2speech_tpu/ops/mel.py``: the HTK filterbank with
 norm=None (torchaudio's ``melscale_fbanks``), the log-mel spectrogram of
-the training targets (``mel.py:57-88``), the log de-normalisation, and the
+the training targets and the power mel of the speaker encoder
+(``mel.py:57-88``), the log de-normalisation, and the
 NNLS inversion of the mel projection (pseudo-inverse warm start, then
 multiplicative updates, ``mel.py:91-120``).
 """
@@ -55,12 +56,15 @@ def log_compress(x: torch.Tensor, clip_val: float = 1e-5) -> torch.Tensor:
     return torch.log(torch.clamp(x, min=clip_val))
 
 
-def melspectrogram(waveform: torch.Tensor, cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
+def melspectrogram(waveform: torch.Tensor, cfg: AudioConfig = AudioConfig(),
+                   log: bool = True) -> torch.Tensor:
     """Waveform ``(..., n_samples)`` -> log-mel ``(..., n_mels, T)``: frame,
-    windowed DFT product, power, mel product, log clamp."""
+    windowed DFT product, power, mel product, log clamp. ``log=False``
+    returns the power mel (the speaker encoder's input)."""
     power = spectrogram(waveform, cfg.n_fft, cfg.hop_length, cfg.win_length)
     fb, _ = _filterbank_on(cfg, waveform.device)
-    return log_compress(torch.einsum("...ft,fm->...mt", power, fb), cfg.clip_val)
+    mel = torch.einsum("...ft,fm->...mt", power, fb)
+    return log_compress(mel, cfg.clip_val) if log else mel
 
 
 def log_decompress(x: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,8 @@ Counterpart of ``lip2speech_tpu/train/logging_utils.py``:
 - console lines with an ETA;
 - per-layer parameter histograms at eval ticks (summary statistics in
   ``histograms.jsonl``, full histograms in TensorBoard);
-- mel, attention and gate PNGs through matplotlib's Agg backend;
+- mel, attention and gate PNGs drawn with cv2, which the data path already
+  needs (no plotting library is required);
 - ``profile_steps``: a ``torch.profiler`` capture around chosen steps.
 """
 
@@ -19,6 +20,7 @@ import json
 import os
 import time
 
+import cv2
 import numpy as np
 import torch
 
@@ -87,25 +89,24 @@ class MetricLogger:
 
     def images(self, step: int, mel_pred=None, mel_target=None, attention=None, gate=None):
         """PNGs of a predicted and a target mel (n_mels, M), an attention map
-        (M, T) and a gate curve (M,), as arrays or tensors."""
-        import matplotlib
-
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
+        (M, T), each as a heat map with row 0 at the bottom, and a gate
+        curve (M,); arrays or tensors. Files are ``<name>_<step>.png``."""
 
         def arr(x):
             return x.detach().float().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
-        def save(a, name, **kw):
-            fig, ax = plt.subplots(figsize=(8, 3))
-            im = ax.imshow(a, aspect="auto", origin="lower", **kw)
-            fig.colorbar(im, ax=ax)
-            fig.tight_layout()
-            fig.savefig(os.path.join(self.run_dir, f"{name}_{step}.png"), dpi=80)
-            plt.close(fig)
+        def unit(a):
+            a = a.astype(np.float32)
+            return (a - a.min()) / max(float(a.max() - a.min()), 1e-9)
+
+        def save(a, name):
+            a = unit(a)
+            img = cv2.applyColorMap((a[::-1] * 255).astype(np.uint8), cv2.COLORMAP_VIRIDIS)
+            scale = max(1, 640 // img.shape[1]), max(1, 240 // img.shape[0])
+            img = cv2.resize(img, (img.shape[1] * scale[0], img.shape[0] * scale[1]),
+                             interpolation=cv2.INTER_NEAREST)
+            cv2.imwrite(os.path.join(self.run_dir, f"{name}_{step}.png"), img)
             if self.tb is not None:
-                a = a.astype(np.float32)
-                a = (a - a.min()) / max(float(a.max() - a.min()), 1e-9)
                 self.tb.add_image(name, a[None], step)
 
         if mel_pred is not None:
@@ -113,12 +114,15 @@ class MetricLogger:
         if mel_target is not None:
             save(arr(mel_target), "mel_target")
         if attention is not None:
-            save(arr(attention), "alignment", interpolation="nearest")
+            save(arr(attention), "alignment")
         if gate is not None:
-            fig, ax = plt.subplots(figsize=(8, 2))
-            ax.plot(arr(gate))
-            fig.savefig(os.path.join(self.run_dir, f"gate_{step}.png"), dpi=80)
-            plt.close(fig)
+            g = unit(arr(gate).reshape(-1))
+            h, w = 160, 640
+            img = np.full((h, w, 3), 255, np.uint8)
+            x = np.linspace(0, w - 1, len(g)) if len(g) > 1 else np.zeros(1)
+            pts = np.stack([x, (h - 1) * (1.0 - g)], axis=1).round().astype(np.int32)
+            cv2.polylines(img, [pts[:, None, :]], False, (180, 80, 0), 1)
+            cv2.imwrite(os.path.join(self.run_dir, f"gate_{step}.png"), img)
 
     def close(self):
         if self.tb is not None:

@@ -2,11 +2,14 @@
 
 Counterpart of ``lip2speech_loss`` in ``lip2speech_tpu/train/losses.py:25-67``:
 mel MSE + weighted postnet MSE + mean gate BCE-with-logits + the KLD of the
-content codebook's distribution against uniform. The adversarial pair of
-that module is not ported yet.
+content codebook's distribution against uniform; and the WGAN pair of
+``losses.py:70-112``: the generator's loss with L1 feature matching, the
+critic's loss, the critic's weight clamp and the gradient penalty.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -41,3 +44,40 @@ def lip2speech_loss(outputs: dict, mel_target: torch.Tensor, gate_target: torch.
     losses["total"] = (losses["mel_loss"] + losses["postnet_mel_loss"] + losses["gate_loss"]
                        + kld_weight * losses["KLD"])
     return losses
+
+
+def generator_loss(fake_pred: torch.Tensor, fake_features: list[torch.Tensor],
+                   real_features: list[torch.Tensor], fm_weight: float = 10.0) -> dict:
+    """WGAN generator loss ``-mean(D(fake))`` and ``fm_weight`` times the sum
+    over the critic's features of the mean |fake - real| (the real features
+    take no gradient)."""
+    fm = sum(torch.mean(torch.abs(f - r.detach())) for f, r in zip(fake_features, real_features))
+    return {"g_loss": -torch.mean(fake_pred), "g_d_fm_loss": fm_weight * fm}
+
+
+def discriminator_loss(real_pred: torch.Tensor, fake_pred: torch.Tensor) -> torch.Tensor:
+    """WGAN critic loss ``-mean(D(real)) + mean(D(fake))``."""
+    return -torch.mean(real_pred) + torch.mean(fake_pred)
+
+
+@torch.no_grad()
+def clamp_discriminator_params(critic: torch.nn.Module, clip: float = 0.01) -> torch.nn.Module:
+    """Every parameter of ``critic`` (BatchNorm scales and biases too; not the
+    running statistics) clamped to [-clip, clip], in place."""
+    for p in critic.parameters():
+        p.clamp_(-clip, clip)
+    return critic
+
+
+def gradient_penalty(critic_fn: Callable[[torch.Tensor], torch.Tensor], real: torch.Tensor,
+                     fake: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """WGAN-GP: ``mean((|grad D(x)| - 1)^2)`` at ``x = alpha * real + (1 -
+    alpha) * fake``; ``alpha (B, 1, 1)`` is the uniform draw, ``critic_fn``
+    maps mels to the critic's (B,) logits (eval mode). The penalty keeps its
+    graph, so it can be differentiated again."""
+    interp = alpha * real + (1 - alpha) * fake
+    if not interp.requires_grad:
+        interp.requires_grad_(True)
+    (grads,) = torch.autograd.grad(critic_fn(interp).sum(), interp, create_graph=True)
+    norms = torch.sqrt(torch.sum(torch.square(grads.reshape(real.shape[0], -1)), -1) + 1e-12)
+    return torch.mean(torch.square(norms - 1.0))

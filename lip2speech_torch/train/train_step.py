@@ -85,13 +85,14 @@ def batch_norm_stats(model: torch.nn.Module) -> dict[str, torch.Tensor]:
     return out
 
 
-def loss_and_grad(state: TrainState, batch: dict, tf_ratio, cfg: Config,
-                  draws: dict | None = None, generator: torch.Generator | None = None):
-    """Forward (train mode) + loss dict + gradients, as the train step
-    computes them. ``batch`` holds video (B,T,H,W,3), faces (B,2,160,160,3)
-    or speaker_embedding (B,256), mel (B,80,M), gate (B,M) and mel_mask
-    (B,M). Returns (losses, new BatchNorm statistics by buffer name, the
-    trainable gradients in ``state.opt.names`` order)."""
+def forward_losses(state: TrainState, batch: dict, tf_ratio, cfg: Config,
+                   draws: dict | None = None, generator: torch.Generator | None = None):
+    """The train-mode forward and the loss dict, with their graph.
+    ``batch`` holds video (B,T,H,W,3), faces (B,2,160,160,3) or
+    speaker_embedding (B,256), mel (B,80,M), gate (B,M) and mel_mask (B,M).
+    Returns (the outputs in f32, the losses, the new BatchNorm statistics by
+    buffer name); terms added to ``losses["total"]`` before ``backward``
+    join the gradients."""
     model = state.model
     bf16 = cfg.train.bf16
     was_training = model.training
@@ -100,7 +101,6 @@ def loss_and_grad(state: TrainState, batch: dict, tf_ratio, cfg: Config,
     for m in norms.values():
         m.new_stats = None
     named = dict(model.named_parameters())
-    trainable = [named[n] for n in state.opt.names]
     weights = {n: p if is_trainable(n) else p.detach() for n, p in named.items()}
     weights.update(dict(model.named_buffers()))
     fwd_batch = batch
@@ -125,9 +125,26 @@ def loss_and_grad(state: TrainState, batch: dict, tf_ratio, cfg: Config,
         outputs, batch["mel"], batch["gate"], postnet_weight=cfg.train.postnet_loss_weight,
         mel_mask=batch.get("mel_mask") if cfg.train.masked_loss else None,
         kld_weight=cfg.train.kld_weight)
+    return outputs, losses, new_stats
+
+
+def backward(state: TrainState, losses: dict) -> tuple[dict, tuple]:
+    """(the losses detached, the gradients of ``losses["total"]`` with
+    respect to the trainable parameters, in ``state.opt.names`` order)."""
     with record_function("train.backward"):
-        grads = torch.autograd.grad(losses["total"], trainable, allow_unused=True)
-    return {k: v.detach() for k, v in losses.items()}, new_stats, grads
+        grads = torch.autograd.grad(losses["total"], state.opt.params, allow_unused=True)
+    return {k: v.detach() for k, v in losses.items()}, grads
+
+
+def loss_and_grad(state: TrainState, batch: dict, tf_ratio, cfg: Config,
+                  draws: dict | None = None, generator: torch.Generator | None = None):
+    """Forward (train mode) + loss dict + gradients, as the train step
+    computes them (``forward_losses``, then ``backward``). Returns (losses,
+    new BatchNorm statistics by buffer name, the trainable gradients in
+    ``state.opt.names`` order)."""
+    _, losses, new_stats = forward_losses(state, batch, tf_ratio, cfg, draws, generator)
+    losses, grads = backward(state, losses)
+    return losses, new_stats, grads
 
 
 def guard_batch_stats(cfg: Config, grads_ok: torch.Tensor, new_stats: dict,
@@ -142,17 +159,11 @@ def guard_batch_stats(cfg: Config, grads_ok: torch.Tensor, new_stats: dict,
     return {k: torch.where(ok, v, old_stats[k]) for k, v in new_stats.items()}
 
 
-def train_step(state: TrainState, batch: dict, tf_ratio, cfg: Config,
-               draws: dict | None = None, seed: int | None = None) -> dict[str, torch.Tensor]:
-    """One optimisation step, in place on ``state``. Draws absent from
-    ``draws`` come from ``step_generator(seed, state.step)``, ``seed``
-    defaulting to ``cfg.train.seed``.
-    Returns the metrics as 0-d tensors on the device: the losses,
-    ``grad_norm`` (global norm of the raw gradients) and, when updates are
-    guarded, ``notfinite_count``. Nothing waits for the device."""
-    seed = cfg.train.seed if seed is None else seed
-    gen = step_generator(seed, state.step, batch["mel"].device)
-    losses, new_stats, grads = loss_and_grad(state, batch, tf_ratio, cfg, draws, gen)
+def apply_update(state: TrainState, cfg: Config, losses: dict, new_stats: dict,
+                 grads) -> dict[str, torch.Tensor]:
+    """The guarded update from ``grads``, the new statistics kept only when
+    it is taken, and one more step. Returns the metrics: ``losses``,
+    ``grad_norm`` and, when updates are guarded, ``notfinite_count``."""
     with record_function("train.optimizer"):
         info = state.opt.step(grads)
     stats = batch_norm_stats(state.model)
@@ -165,3 +176,17 @@ def train_step(state: TrainState, batch: dict, tf_ratio, cfg: Config,
     if "notfinite_count" in info:
         metrics["notfinite_count"] = info["notfinite_count"]
     return metrics
+
+
+def train_step(state: TrainState, batch: dict, tf_ratio, cfg: Config,
+               draws: dict | None = None, seed: int | None = None) -> dict[str, torch.Tensor]:
+    """One optimisation step, in place on ``state``. Draws absent from
+    ``draws`` come from ``step_generator(seed, state.step)``, ``seed``
+    defaulting to ``cfg.train.seed``.
+    Returns the metrics as 0-d tensors on the device: the losses,
+    ``grad_norm`` (global norm of the raw gradients) and, when updates are
+    guarded, ``notfinite_count``. Nothing waits for the device."""
+    seed = cfg.train.seed if seed is None else seed
+    gen = step_generator(seed, state.step, batch["mel"].device)
+    losses, new_stats, grads = loss_and_grad(state, batch, tf_ratio, cfg, draws, gen)
+    return apply_update(state, cfg, losses, new_stats, grads)

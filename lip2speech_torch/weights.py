@@ -12,6 +12,11 @@ weight/bias/running_mean/running_var.
 Unlike ``flax_to_torch``, a tree without ``vgg_face`` (a model run with an
 external speaker embedding) converts too: the keys of a top-level module
 (``encoder``, ``vgg_face``, ``decoder``) that the tree lacks are left out.
+
+``critic_from_flax`` carries the WGAN critic across under its flax names
+(``build_entries`` has none for it), and ``speaker_from_flax`` the voice
+speaker encoder under the reference names, the inverse of the JAX demo's
+mapping (``lip2speech_tpu/cli/demo.py:53-63``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from lip2speech_torch.config import ModelConfig
+from lip2speech_torch.models.discriminator import BLOCKS
 from lip2speech_torch.models.shufflenet import STAGE_REPEATS
 
 T_LINEAR = "linear"
@@ -242,6 +248,38 @@ def from_flax(variables: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
         else:
             put(tkey, _INV[code](val))
     return sd
+
+
+def critic_from_flax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
+    """The flax ``Discriminator``'s params and batch_stats (numpy arrays) ->
+    the state dict of ``models.discriminator.Discriminator``."""
+    e: list[tuple[str, tuple, str]] = []
+    for name in ("mel_encoder", "speaker_encoder", "enc_0", "enc_1", "fc"):
+        _dense(e, name, (name,))
+    for i in range(len(BLOCKS)):
+        for conv in ("shortcut", "conv1", "conv2"):
+            _conv(e, f"res_{i}.{conv}", (f"res_{i}", conv), T_CONV1)
+        for bn in ("bn1", "bn2"):
+            _bn(e, f"res_{i}.{bn}", (f"res_{i}", bn))
+    variables = {"params": params, "batch_stats": batch_stats}
+    return {k: torch.from_numpy(np.ascontiguousarray(_INV[code](np.asarray(_get(variables, path)))))
+            for k, path, code in e}
+
+
+def speaker_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """The flax ``SpeakerEncoder``'s params (numpy arrays) -> the state dict
+    of ``models.speaker.SpeakerEncoder``: the folded LSTM bias in
+    ``bias_ih_l{l}``, zeros in ``bias_hh_l{l}``."""
+    sd = {}
+    for l in range(len(params["lstm"])):
+        cell = params["lstm"][f"l{l}_fwd"]
+        sd[f"lstm.weight_ih_l{l}"] = np.asarray(cell["wx"]).T
+        sd[f"lstm.weight_hh_l{l}"] = np.asarray(cell["wh"]).T
+        sd[f"lstm.bias_ih_l{l}"] = np.asarray(cell["b"])
+        sd[f"lstm.bias_hh_l{l}"] = np.zeros_like(np.asarray(cell["b"]))
+    sd["linear.weight"] = np.asarray(params["linear"]["kernel"]).T
+    sd["linear.bias"] = np.asarray(params["linear"]["bias"])
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
 def load_reference_pth(path: str) -> tuple[dict, dict]:

@@ -221,12 +221,6 @@ def test_reuse_first_batch(root, tmp_path, monkeypatch):
     assert result["profile"]["wall_ms"] > 0
 
 
-def test_adversarial_is_not_ported(root, tmp_path):
-    cfg = tiny_config(adversarial=True)
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        train_cli.train(_args(root, tmp_path, "--max_iters", "1"), cfg)
-
-
 def test_evaluate_cli_prints_its_json_line(root, trained, capsys):
     tmp, _, _ = trained
     argv = ["--root", root, "--device", "cpu", "--model_path", str(tmp / "ckpt"),

@@ -102,6 +102,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import lip2speech_torch.cli.train, lip2speech_torch.cli.evaluate\n"
         "import lip2speech_torch.eval.evaluate, lip2speech_torch.eval.metrics\n"
         "import lip2speech_torch.ops.estoi\n"
+        "import lip2speech_torch.models.discriminator, lip2speech_torch.models.speaker\n"
+        "import lip2speech_torch.train.adversarial, lip2speech_torch.cli.demo\n"
         "banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lip2speech_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not bad, bad\n"

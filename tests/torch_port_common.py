@@ -84,11 +84,15 @@ def t(x) -> torch.Tensor:
 
 
 STEP_KEY_NAMES = ["gumbel", "teacher", "dropout", "postnet_dropout", "encoder_dropout"]
+# the adversarial step splits its key seven ways (adversarial.py:170-173)
+ADV_STEP_KEY_NAMES = STEP_KEY_NAMES + ["patch_g", "patch_d"]
 
 
-def jax_step_keys(rng, step: int) -> dict:
-    """The per-step keys of the JAX train step (train_step.py:209-211)."""
-    return dict(zip(STEP_KEY_NAMES, jax.random.split(jax.random.fold_in(rng, step), 5)))
+def jax_step_keys(rng, step: int, names=STEP_KEY_NAMES) -> dict:
+    """The per-step keys of the JAX train step (train_step.py:209-211), or,
+    with ``ADV_STEP_KEY_NAMES``, of the adversarial step: the step's key
+    split ``len(names)`` ways."""
+    return dict(zip(names, jax.random.split(jax.random.fold_in(rng, step), len(names))))
 
 
 def content_slots(T: int) -> int:
