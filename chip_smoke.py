@@ -59,7 +59,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``cli.synthesize --from_lrw --n_clips 4`` (one video of 4 clips, its
    chunks decoded as one batch). Checks: every file written, every
    waveform finite and not empty, one kernel launch per clip (per video)
-   and one weight pack per run. Prints ms per clip.
+   and one weight pack per run. Prints ms per clip;
+8. the WILD, GRID and AVSpeech corpora: fixtures written by the port's
+   writers in a temporary directory (64 WILD segments of 50 frames and 2 s
+   of audio, 16 GRID clips in MJPG ``.avi``, 16 AVSpeech clips in ``.mp4``,
+   each with tilted landmarks); ``cli.train --dataset WILD`` at full width
+   (default Config at the 2-second bucket: 50 frames, 32000 samples, 126
+   mel frames; bf16 policy, B=64) for 4 steps with one eval tick, whose 2
+   batches of 32 decode through the AR kernel at T=50, M=126, then 4 steps
+   on a staged batch (``--reuse_first_batch``); the kernel against its
+   plain version on one such eval batch (``TOL['float32']``);
+   ``cli.evaluate --dataset GRID`` and ``--dataset AVSpeech`` at the default
+   bucket. Checks: finite losses, one eval record, one kernel launch per
+   eval batch, a finite score over every clip. Prints the step's ms with
+   the loader and on the staged batch, the loader's host ms a batch and the
+   eval tick's ms;
+9. speaker pretraining: an AVSpeechFace fixture of 48 train and 2 test
+   clips; ``cli.speaker_train`` at full width (InceptionResnetV1 at
+   160x160, the face decoder to 160, the voice encoder on 32000 samples;
+   f32, B=64, the 48 clips repeated to fill the batch) for 4 steps and its
+   checkpoint, then ``cli.speaker_test``. Checks: finite losses and
+   ``grad_norm``, ``t`` <= 100, the checkpoint and the test's files, finite
+   embeddings; and one f32 speaker step (losses, new BatchNorm statistics,
+   gradients) on the GPU against the same step on the CPU (B=4, same
+   weights, batch and draws), each held against an f64 step on its own
+   ReLU kink sides as phase 4 holds the train step (``TRAIN_*``). Prints ms
+   a step, the peak memory and the losses.
 
 Timings print with the card's name and power limit. The line before the
 last is a JSON object listing each kernel; the last line is
@@ -67,14 +92,15 @@ last is a JSON object listing each kernel; the last line is
 beside this file, it exits non-zero and prints no result.
 
 Usage: python3 chip_smoke.py [--profile | --kernel-only | --train-only | --cli-only |
-                              --adv-only | --demo-only]
+                              --adv-only | --demo-only | --corpora-only | --speaker-only]
 
 ``--profile`` adds, for each timed batch and for a train step, the device
 time by kernel of one batch (torch.profiler) and the device's idle share.
 ``--kernel-only`` runs phases 1 and 2 alone at B in {4, 256} (with the
 per-stage times) and prints no result line; ``--train-only`` runs phases 1
 and 4, ``--cli-only`` phases 1 and 5, ``--adv-only`` phases 1 and 6 and
-``--demo-only`` phases 1 and 7, and none of them prints a result line.
+``--demo-only`` phases 1 and 7, ``--corpora-only`` phases 1 and 8 and
+``--speaker-only`` phases 1 and 9, and none of them prints a result line.
 """
 
 from __future__ import annotations
@@ -170,6 +196,13 @@ ADV_B = 8
 ADV_TIMED = 5
 # phase 7: the demo's clips for each encoding, and synthesize's clips
 DEMO_CLIPS, SYNTH_CLIPS = 2, 4
+# phase 8: WILD's 2-second bucket (50 frames at 25 fps, 2 s at 16 kHz, and
+# 1 + 32000 // 256 mel frames), the fixtures' clips and the training steps
+WILD_BUCKET = dict(max_video_frames=50, max_audio_samples=32000, max_mel_frames=126)
+WILD_CLIPS, STREAM_CLIPS = 64, 16
+CORPUS_STEPS = 4  # the eval tick at the last; step 1 warms up
+# phase 9: the AVSpeechFace fixture, the CLI's steps, the GPU-vs-CPU batch
+SPEAKER_CLIPS, SPEAKER_STEPS, SPEAKER_CHECK_B = 48, 4, 4
 
 
 def fail(msg: str):
@@ -818,7 +851,8 @@ def eval_batch_checks(cfg, model, ds, dev, card: str) -> dict:
     flops, nbytes = ar_decode_work(cfg.model, B, enc["k"].shape[1], enc["content_key"].shape[1],
                                    M, 4)
     bms, by = bound_ms(flops, nbytes, "float32")
-    print(f"ar_decode on an eval batch (B={B}, M={M}, f32): max|err| mel {errs[0]:.3e} stop "
+    print(f"ar_decode on an eval batch (B={B}, T={enc['k'].shape[1]}, M={M}, f32): max|err| mel "
+          f"{errs[0]:.3e} stop "
           f"{errs[1]:.3e} attn {errs[2]:.3e} (tol {TOL['float32']}); kernel {ms:.3f} ms, plain "
           f"{plain:.3f} ms, bound {bms:.4f} ms ({by}) [{card}]")
     if any(e > t for e, t in zip(errs, TOL["float32"])) or not all(
@@ -1200,6 +1234,263 @@ def phase_demo(cfg, card: str, dev) -> dict:
     return launches
 
 
+def phase_corpora(cfg, card: str, dev) -> dict:
+    """The WILD, GRID and AVSpeech readers through the entry points at full
+    width (see the module docstring); returns the AR kernel's launches on
+    each eval path and its numbers on one eval batch at T=50, M=126."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from lip2speech_torch.cli import evaluate as eval_cli
+    from lip2speech_torch.cli import train as train_cli
+    from lip2speech_torch.cli.common import load_model
+    from lip2speech_torch.data import get_dataset, make_sample_streaming, make_sample_wild
+    from lip2speech_torch.kernels import ar_decode as ar
+
+    wild_cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **WILD_BUCKET))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="lip2speech_corpora_") as tmp:
+        roots = {"WILD": os.path.join(tmp, "wild"), "GRID": os.path.join(tmp, "grid"),
+                 "AVSpeech": os.path.join(tmp, "avspeech")}
+        t0 = time.time()
+        make_sample_wild(roots["WILD"], n_clips=WILD_CLIPS, seed=SEED)
+        make_sample_streaming(roots["GRID"], n_clips=STREAM_CLIPS, seed=SEED + 1)
+        make_sample_streaming(os.path.join(roots["AVSpeech"], "test"), n_clips=STREAM_CLIPS,
+                              ext=".mp4", seed=SEED + 2)
+        print(f"corpora: fixtures of {WILD_CLIPS} WILD, {STREAM_CLIPS} GRID and {STREAM_CLIPS} "
+              f"AVSpeech clips in {time.time() - t0:.1f} s")
+        for name, root in roots.items():  # the videos decode and seek on this machine's cv2
+            ds = get_dataset(name, root, mode="test", cfg=cfg.data,
+                             rng=np.random.default_rng(SEED))
+            s = ds[0]
+            print(f"corpora: {name} sample mouth {s['mouth'].shape}, faces {s['faces'].shape}, "
+                  f"audio {s['audio'].shape}")
+
+        # the main path: train on WILD at the 2-second bucket, one eval tick
+        ar.launches = 0
+        t0 = time.time()
+        res = train_cli.train(_cli_args(roots["WILD"], tmp, "wild", dev, "--dataset", "WILD",
+                                        "--max_iters", str(CORPUS_STEPS),
+                                        "--eval_interval", str(CORPUS_STEPS)), wild_cfg)
+        torch.cuda.synchronize(dev)
+        out["wild"] = ar.launches
+        wall = time.time() - t0
+        rows, evals = _step_rows(os.path.join(tmp, "run_wild"))
+        ms = [r["step_time"] * 1e3 for r in rows[1:]]
+        st = res["loader"]
+        print(f"corpora train --dataset WILD B={TRAIN_B}, T=50, M=126: {len(rows)} steps and an "
+              f"eval tick in {wall:.1f} s; {float(np.median(ms)):.2f} ms per step with the loader "
+              f"(steps 2-{CORPUS_STEPS}: {[round(t, 2) for t in ms]}); losses "
+              f"{[round(r['total'], 3) for r in rows]}; loader {st['host_s'] / st['batches'] * 1e3:.2f} "
+              f"ms of host time a batch, {st['stalls']} stalls; eval tick "
+              f"{evals[0]['step_time'] * 1e3 if evals else float('nan'):.2f} ms, ESTOI "
+              f"{res['best_score']:.4f}, ar_decode launches {out['wild']} [{card}]")
+        eval_batches = min(CLI_EVAL_BATCHES, -(-WILD_CLIPS // min(32, TRAIN_B)))
+        if len(rows) != CORPUS_STEPS or len(evals) != 1 or not all(
+                math.isfinite(r["total"]) for r in rows):
+            fail(f"the WILD run logged {len(rows)} steps and {len(evals)} eval records, "
+                 "or a non-finite loss")
+        if out["wild"] != eval_batches:
+            fail(f"the WILD eval tick launched the AR kernel {out['wild']} times for "
+                 f"{eval_batches} batches")
+
+        # the same step on a staged batch (the 64 segments are one batch)
+        train_cli.train(_cli_args(roots["WILD"], tmp, "wild_staged", dev, "--dataset", "WILD",
+                                  "--max_iters", str(CORPUS_STEPS), "--eval_interval", "1000",
+                                  "--reuse_first_batch"), wild_cfg)
+        staged, _ = _step_rows(os.path.join(tmp, "run_wild_staged"))
+        ms_staged = [r["step_time"] * 1e3 for r in staged[1:]]
+        print(f"corpora train --dataset WILD B={TRAIN_B} on a staged batch: "
+              f"{float(np.median(ms_staged)):.2f} ms per step (steps 2-{CORPUS_STEPS}: "
+              f"{[round(t, 2) for t in ms_staged]}); with the loader {float(np.median(ms)):.2f} ms "
+              f"[{card}]")
+
+        # the kernel against its plain version on one eval batch at T=50, M=126
+        model, _ = load_model(wild_cfg, os.path.join(tmp, "ckpt_wild"), dev)
+        wild_ds = get_dataset("WILD", roots["WILD"], mode="test", cfg=wild_cfg.data)
+        out.update(eval_batch_checks(wild_cfg, model, wild_ds, dev, card))
+
+        # cli.evaluate on GRID and AVSpeech at the default bucket
+        for name in ("GRID", "AVSpeech"):
+            buf = io.StringIO()
+            ar.launches = 0
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf):
+                eval_cli.main(["--dataset", name, "--root", roots[name], "--model_path",
+                               os.path.join(tmp, "ckpt_wild"), "--device", str(dev),
+                               *_overrides(cfg)])
+            torch.cuda.synchronize(dev)
+            out[name] = ar.launches
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            print(f"corpora evaluate --dataset {name}: {json.dumps(line)} in "
+                  f"{time.time() - t0:.1f} s, ar_decode launches {out[name]} [{card}]")
+            if (line.get("n_clips") != STREAM_CLIPS or not math.isfinite(line.get("estoi", math.nan))
+                    or out[name] != 1):
+                fail(f"cli.evaluate --dataset {name} printed {line} with {out[name]} kernel launches")
+    return out
+
+
+class ReluSides:
+    """Stands in for ``torch.nn.functional`` in the speaker models' modules:
+    it records the side of 0 of every ReLU input, or, given a run's
+    ``signs``, makes each ReLU take that side (``x * side``: the gradient
+    passes where the recorded input was positive)."""
+
+    MODULES = ("lip2speech_torch.models.face", "lip2speech_torch.speaker.models",
+               "lip2speech_torch.speaker.losses")
+
+    def __init__(self, signs=None):
+        import torch.nn.functional
+
+        self._f = torch.nn.functional
+        self.signs = []
+        self._given = None if signs is None else iter(signs)
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
+
+    def relu(self, x, inplace=False):
+        if self._given is None:
+            self.signs.append((x > 0).cpu())
+            return self._f.relu(x)
+        return x * next(self._given).to(x.device)
+
+    def __enter__(self):
+        for name in self.MODULES:
+            sys.modules[name].F = self
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.MODULES:
+            sys.modules[name].F = self._f
+
+
+def speaker_gpu_vs_cpu(cfg, cpu_model, batch: dict, card: str, dev):
+    """One f32 speaker step (losses, new statistics, gradients) on the GPU
+    and on the CPU, same weights, batch and draws, each held against an f64
+    step on the CPU that takes its side at every ReLU kink; fails beyond
+    phase 4's ``TRAIN_*`` bounds."""
+    import torch
+
+    from lip2speech_torch.speaker.train_loop import GROUPS, speaker_draws, speaker_loss_and_grad
+
+    B = batch["speech"].shape[0]
+    draws = speaker_draws(B, torch.Generator().manual_seed(SEED + 5), "cpu")
+    names = [n for g in GROUPS for n, _ in
+             ([("t", None)] if g == "t" else getattr(cpu_model, g).named_parameters(prefix=g))]
+
+    def run(device, dtype, signs=None):
+        model = copy.deepcopy(cpu_model).to(device, dtype)
+        b = {k: v.to(device) for k, v in batch.items()}
+        d = {k: v.to(device) for k, v in draws.items()}
+        with ReluSides(signs) as sides:
+            losses, stats, grads = speaker_loss_and_grad(model, b, d)
+        grads = dict(zip(names, [g for group in GROUPS for g in grads[group]]))
+        return [{k: v.detach().double().cpu() for k, v in part.items()}
+                for part in (losses, stats, grads)] + [sides.signs]
+
+    free, cpu, gpu = run("cpu", torch.float64), run("cpu", torch.float32), run(dev, torch.float32)
+    ref_cpu, ref_gpu = run("cpu", torch.float64, cpu[3]), run("cpu", torch.float64, gpu[3])
+    for label, got in (("CPU", cpu), ("GPU", gpu)):
+        flips = sum(int((a != b).sum()) for a, b in zip(got[3], free[3]))
+        print(f"speaker step B={B}, {label} f32: ReLU kinks on the other side from the free f64 "
+              f"step: {flips} of {sum(x.numel() for x in got[3])}")
+    worst = []
+    for part, kind in enumerate(("losses", "BN statistics", "gradients")):
+        top = max(float(v.abs().max()) for v in ref_gpu[part].values())
+        ratio, name = max(
+            (float((gpu[part][k] - r).abs().max())
+             / (TRAIN_F32_FACTOR * float((cpu[part][k] - ref_cpu[part][k]).abs().max())
+                + TRAIN_REL * float(r.abs().max()) + TRAIN_FLOOR * top), k)
+            for k, r in ref_gpu[part].items())
+        worst.append(ratio)
+        print(f"speaker f32 step B={B}, against f64 on its kink sides: {kind} ({len(ref_gpu[part])}): "
+              f"the GPU's error is at most {ratio:.3f} of its tolerance ({name}: GPU "
+              f"{float((gpu[part][name] - ref_gpu[part][name]).abs().max()):.3e}, CPU f32 "
+              f"{float((cpu[part][name] - ref_cpu[part][name]).abs().max()):.3e}, max "
+              f"{float(ref_gpu[part][name].abs().max()):.3e}) [{card}]")
+    if max(worst) > 1.0:
+        fail("the f32 speaker step on the GPU disagrees with the CPU")
+
+
+def phase_speaker(cfg, card: str, dev) -> None:
+    """Speaker pretraining through its entry points at full width (see the
+    module docstring)."""
+    import numpy as np
+    import torch
+
+    from lip2speech_torch.cli import speaker_test, speaker_train
+    from lip2speech_torch.data import make_sample_avspeech_face
+    from lip2speech_torch.data.collate import to_device
+    from lip2speech_torch.speaker import (AVSpeechFace, collate_speaker, init_speaker_training,
+                                          speaker_train_step)
+    from lip2speech_torch.train import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory(prefix="lip2speech_speaker_") as tmp:
+        root = os.path.join(tmp, "avspeech")
+        t0 = time.time()
+        make_sample_avspeech_face(root, "train", n_clips=SPEAKER_CLIPS, n_frames=60, seed=SEED)
+        make_sample_avspeech_face(root, "test", n_clips=2, n_frames=60, seed=SEED + 1)
+        print(f"speaker: fixture of {SPEAKER_CLIPS} + 2 clips in {time.time() - t0:.1f} s")
+
+        # the main path: the pretraining CLI, then the qualitative test
+        torch.cuda.reset_peak_memory_stats(dev)
+        run_dir, ckpt_dir = os.path.join(tmp, "run"), os.path.join(tmp, "ckpt")
+        t0 = time.time()
+        state = speaker_train.main(["--root", root, "--batch_size", str(TRAIN_B), "--max_iters",
+                                    str(SPEAKER_STEPS), "--log_interval", "1", "--device", str(dev),
+                                    "--run_dir", run_dir, "--ckpt_dir", ckpt_dir])
+        torch.cuda.synchronize(dev)
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        ms = [r["step_time"] * 1e3 for r in rows[1:]]
+        print(f"speaker train B={TRAIN_B} f32: {len(rows)} steps in {wall:.1f} s (set-up "
+              f"included); {float(np.median(ms)):.2f} ms per step with the host's reads (steps "
+              f"2-{SPEAKER_STEPS}: {[round(t, 2) for t in ms]}); loss "
+              f"{[round(r['loss'], 4) for r in rows]}, c_loss {[round(r['c_loss'], 4) for r in rows]}, "
+              f"rec_loss {[round(r['rec_loss'], 4) for r in rows]}, t "
+              f"{[round(r['t'], 6) for r in rows]}, peak memory {peak:.2f} GiB [{card}]")
+        want = {"c_loss", "l2_loss", "rec_loss", "loss", "grad_norm", "t"}
+        if len(rows) != SPEAKER_STEPS or not all(want <= set(r) for r in rows):
+            fail(f"the speaker run logged {len(rows)} steps without {want}")
+        if not all(math.isfinite(r[k]) for r in rows for k in want) or rows[-1]["t"] > 100.0:
+            fail("the speaker run logged a non-finite value or t > 100")
+        if ckpt.available_steps(ckpt_dir) != [SPEAKER_STEPS] or state.step != SPEAKER_STEPS:
+            fail(f"the speaker checkpoints are {ckpt.available_steps(ckpt_dir)}")
+
+        # the same step on a staged batch (no reads), on the trained state
+        ds = AVSpeechFace(root, "train", cfg.data, rng=np.random.default_rng(SEED))
+        staged = to_device(collate_speaker([ds[i % len(ds)] for i in range(TRAIN_B)]), dev)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            speaker_train_step(state, staged)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"speaker step B={TRAIN_B} f32 on a staged batch: {float(np.median(times)):.2f} ms "
+              f"(median of 3: {[round(t, 2) for t in times]}) [{card}]")
+
+        out = os.path.join(tmp, "test_out")
+        emb = speaker_test.main(["--root", root, "--out", out, "--device", str(dev)])
+        files = sorted(os.listdir(out))
+        print(f"speaker test: {files}, |face emb| {float(np.linalg.norm(emb['face_embedding'])):.4f}, "
+              f"|speech emb| {float(np.linalg.norm(emb['speech_embedding'])):.4f}")
+        if files != ["face.jpg", "face_embedding.npy", "speech_embedding.npy"] or not all(
+                np.isfinite(v).all() and v.shape == (1, 256) for v in emb.values()):
+            fail("cli.speaker_test did not write finite embeddings")
+
+        check = collate_speaker([ds[i] for i in range(SPEAKER_CHECK_B)])
+        cpu_model = init_speaker_training(cfg, torch.Generator().manual_seed(SEED))
+        speaker_gpu_vs_cpu(cfg, cpu_model, {k: torch.from_numpy(v) for k, v in check.items()},
+                           card, dev)
+
+
 def main() -> int:
     try:
         import torch
@@ -1241,12 +1532,22 @@ def main() -> int:
         phase_demo(cfg, card, dev)
         print(card)
         return 0
+    if "--corpora-only" in sys.argv[1:]:
+        phase_corpora(cfg, card, dev)
+        print(card)
+        return 0
+    if "--speaker-only" in sys.argv[1:]:
+        phase_speaker(cfg, card, dev)
+        print(card)
+        return 0
     results = phase_kernel(cfg, card, dev)
     launches = phase_pipeline(cfg, card, dev, profile=profile)
     phase_train(cfg, card, dev, profile=profile)
     at_eval = phase_cli(cfg, card, dev)
     at_adv = phase_adversarial(cfg, card, dev)
     at_demo = phase_demo(cfg, card, dev)
+    at_corpora = phase_corpora(cfg, card, dev)
+    phase_speaker(cfg, card, dev)
 
     at_main = results[(MAIN_B, "bfloat16")]
     kernels = [{
@@ -1275,6 +1576,16 @@ def main() -> int:
         "demo_face_launches": at_demo["face"],
         "demo_voice_launches": at_demo["voice"],
         "synthesize_launches": at_demo["synthesize"],
+        # the corpora (phase 8): launches in the WILD CLI's eval tick and in
+        # cli.evaluate on GRID and AVSpeech; the kernel on one WILD eval
+        # batch, B=32, T=50, M=126, f32
+        "wild_eval_launches": at_corpora["wild"],
+        "grid_eval_launches": at_corpora["GRID"],
+        "avspeech_eval_launches": at_corpora["AVSpeech"],
+        "wild_eval_max_abs_err": at_corpora["err"],
+        "wild_eval_ms": at_corpora["ms"],
+        "wild_eval_plain_ms": at_corpora["plain_ms"],
+        "wild_eval_bound_ms": at_corpora["bound_ms"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

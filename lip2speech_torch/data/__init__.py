@@ -1,24 +1,22 @@
-"""Data of the PyTorch port: the LRW reader, the threaded loader, the
-synthetic fixture and batch assembly."""
+"""Data of the PyTorch port: the LRW, WILD, GRID and AVSpeech readers, the
+threaded loader, the synthetic fixtures and batch assembly."""
 
 from lip2speech_torch.config import DataConfig
 from lip2speech_torch.data.augmentation import FaceAugmentation  # noqa: F401
-from lip2speech_torch.data.fixtures import make_sample_lrw  # noqa: F401
+from lip2speech_torch.data.fixtures import (make_sample_avspeech_face,  # noqa: F401
+                                            make_sample_lrw, make_sample_streaming,
+                                            make_sample_wild)
 from lip2speech_torch.data.loader import Loader  # noqa: F401
 from lip2speech_torch.data.lrw import LRW, load_jpeg_stack  # noqa: F401
+from lip2speech_torch.data.streaming import GRID, AVSpeech  # noqa: F401
+from lip2speech_torch.data.wild import WILD  # noqa: F401
 
-# corpora whose readers are not ported yet (ROADMAP.md, queue 2)
-_LATER = {"WILD": "data/wild.py", "GRID": "data/streaming.py", "AVSPEECH": "data/streaming.py"}
+_READERS = {"LRW": LRW, "WILD": WILD, "GRID": GRID, "AVSPEECH": AVSpeech}
 
 
 def get_dataset(name: str, root: str, mode: str = "train", cfg: DataConfig | None = None, **kw):
     """The corpus ``name`` (LRW | GRID | AVSpeech | WILD) under ``root``."""
-    cfg = cfg or DataConfig()
-    key = name.upper()
-    if key == "LRW":
-        return LRW(root, mode=mode, cfg=cfg, **kw)
-    if key in _LATER:
-        raise NotImplementedError(
-            f"the {name} reader ({_LATER[key]} in the JAX package) is not ported yet: "
-            "ROADMAP.md, queue 2")
-    raise ValueError(f"unknown dataset {name}")
+    reader = _READERS.get(name.upper())
+    if reader is None:
+        raise ValueError(f"unknown dataset {name}")
+    return reader(root, mode=mode, cfg=cfg or DataConfig(), **kw)

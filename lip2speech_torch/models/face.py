@@ -2,9 +2,16 @@
 
 Counterpart of ``lip2speech_tpu/models/face.py``, with facenet-pytorch's
 module names (conv2d_1a ... last_bn), so reference checkpoints map 1:1.
-BatchNorm eps is 1e-3 as in facenet; every BN runs in eval mode. Padding
-is VALID unless noted, the Mixed6a/Mixed7a max-pools included. Input is
-NCHW here; ``Lip2Speech`` transposes the channels-last crops.
+BatchNorm eps is 1e-3 as in facenet. Padding is VALID unless noted, the
+Mixed6a/Mixed7a max-pools included. Input is NCHW here; ``Lip2Speech``
+transposes the channels-last crops.
+
+In ``Lip2Speech`` the face net is frozen and runs in eval mode. Speaker
+pretraining (``speaker/train_loop.py``) trains it, as the JAX module does
+with ``train=True``: its BatchNorms train by flax's rule
+(``layers.BatchNorm2d/1d``, the new statistics left in ``new_stats``), and
+the pooled 1792-d features get dropout at rate 0.6 from a keep mask the
+caller hands in.
 """
 
 from __future__ import annotations
@@ -13,12 +20,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lip2speech_torch.models.layers import BatchNorm1d, BatchNorm2d, dropout
+
+DROPOUT_RATE = 0.6
+
 
 class BasicConv2d(nn.Module):
     def __init__(self, cin, cout, kernel, stride=1, padding=0):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, padding, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-3)
+        self.bn = BatchNorm2d(cout, eps=1e-3)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -102,7 +113,8 @@ class Mixed7a(nn.Module):
 
 
 class InceptionResnetV1(nn.Module):
-    """(B, 3, H, W) -> (B, 512) raw embedding (eval mode: no dropout)."""
+    """(B, 3, H, W) -> (B, 512) raw embedding. In train mode the pooled
+    features take dropout with ``keep`` (B, 1792), which must be given."""
 
     def __init__(self):
         super().__init__()
@@ -119,14 +131,18 @@ class InceptionResnetV1(nn.Module):
         self.repeat_3 = nn.Sequential(*[Block8() for _ in range(5)])
         self.block8 = Block8(no_relu=True)
         self.last_linear = nn.Linear(1792, 512, bias=False)
-        self.last_bn = nn.BatchNorm1d(512, eps=1e-3)
+        self.last_bn = BatchNorm1d(512, eps=1e-3)
 
-    def forward(self, x):
+    def forward(self, x, keep: torch.Tensor | None = None):
         x = self.conv2d_2b(self.conv2d_2a(self.conv2d_1a(x)))
         x = F.max_pool2d(x, 3, 2)
         x = self.conv2d_4b(self.conv2d_4a(self.conv2d_3b(x)))
         x = self.mixed_7a(self.repeat_2(self.mixed_6a(self.repeat_1(x))))
         x = self.block8(self.repeat_3(x)).mean(dim=(2, 3))
+        if self.training:
+            if keep is None:
+                raise ValueError("the face net in train mode needs its dropout keep mask")
+            x = dropout(x, keep, DROPOUT_RATE)
         return self.last_bn(self.last_linear(x))
 
 
@@ -138,8 +154,10 @@ class FaceRecognizer(nn.Module):
         self.resnet = InceptionResnetV1()
         self.projection_layer = nn.Sequential(nn.Linear(512, 512), nn.GELU(), nn.Linear(512, 256))
 
-    def forward(self, x):
-        return self.projection_layer(self.resnet(x))
+    def forward(self, x, keep: torch.Tensor | None = None):
+        """(B, 3, H, W) -> (B, 256); ``keep`` is the train-mode dropout mask
+        of ``InceptionResnetV1``."""
+        return self.projection_layer(self.resnet(x, keep))
 
     def inference(self, x):
         """ReLU, then L2 normalisation (vgg_face.py:52-60)."""

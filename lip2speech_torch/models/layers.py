@@ -7,9 +7,9 @@ follow the reference torch modules (``LinearNorm.linear_layer``,
 ``strict=True``. LSTM gates are in torch order (i, f, g, o).
 
 BatchNorm uses torch's default eps 1e-5, except in the face net
-(``models/face.py``), which uses 1e-3 like facenet and never trains. Every
-trainable BatchNorm is ``BatchNorm1d/2d/3d`` below, which trains by flax's
-rule.
+(``models/face.py``), which uses 1e-3 like facenet and trains only in
+speaker pretraining. Every BatchNorm that trains is ``BatchNorm1d/2d/3d``
+below, which trains by flax's rule.
 """
 
 from __future__ import annotations

@@ -34,7 +34,9 @@ class SpeakerEncoder(nn.Module):
         self.linear = nn.Linear(dim, dim)
 
     def forward(self, waveform: torch.Tensor) -> torch.Tensor:
+        # the mel is computed in f32 (ops/stft.py); the LSTM runs in its own type
         mels = melspectrogram(waveform, SPEAKER_AUDIO_CFG, log=False).transpose(1, 2)
+        mels = mels.to(self.linear.weight.dtype)
         _, (hidden, _) = self.lstm(mels)
         return self.linear(hidden[-1])
 

@@ -16,7 +16,11 @@ external speaker embedding) converts too: the keys of a top-level module
 ``critic_from_flax`` carries the WGAN critic across under its flax names
 (``build_entries`` has none for it), and ``speaker_from_flax`` the voice
 speaker encoder under the reference names, the inverse of the JAX demo's
-mapping (``lip2speech_tpu/cli/demo.py:53-63``).
+mapping (``lip2speech_tpu/cli/demo.py:53-63``). ``named_from_flax`` carries
+any tree of Dense, Conv and norm layers whose port modules keep the flax
+names (``models/audio_extras.py``, the speaker models), and
+``speaker_training_from_flax`` the speaker-pretraining tree (face net,
+face decoder, temperature, and the frozen voice encoder).
 """
 
 from __future__ import annotations
@@ -27,7 +31,6 @@ import numpy as np
 import torch
 
 from lip2speech_torch.config import ModelConfig
-from lip2speech_torch.models.discriminator import BLOCKS
 from lip2speech_torch.models.shufflenet import STAGE_REPEATS
 
 T_LINEAR = "linear"
@@ -252,18 +255,9 @@ def from_flax(variables: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
 
 def critic_from_flax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
     """The flax ``Discriminator``'s params and batch_stats (numpy arrays) ->
-    the state dict of ``models.discriminator.Discriminator``."""
-    e: list[tuple[str, tuple, str]] = []
-    for name in ("mel_encoder", "speaker_encoder", "enc_0", "enc_1", "fc"):
-        _dense(e, name, (name,))
-    for i in range(len(BLOCKS)):
-        for conv in ("shortcut", "conv1", "conv2"):
-            _conv(e, f"res_{i}.{conv}", (f"res_{i}", conv), T_CONV1)
-        for bn in ("bn1", "bn2"):
-            _bn(e, f"res_{i}.{bn}", (f"res_{i}", bn))
-    variables = {"params": params, "batch_stats": batch_stats}
-    return {k: torch.from_numpy(np.ascontiguousarray(_INV[code](np.asarray(_get(variables, path)))))
-            for k, path, code in e}
+    the state dict of ``models.discriminator.Discriminator``, whose modules
+    keep the flax names."""
+    return named_from_flax(params, batch_stats)
 
 
 def speaker_from_flax(params: dict) -> dict[str, torch.Tensor]:
@@ -292,3 +286,62 @@ def load_reference_pth(path: str) -> tuple[dict, dict]:
                if k.startswith("speaker_encoder.")}
     main = {k: v for k, v in sd.items() if not k.startswith("speaker_encoder.")}
     return main, speaker
+
+
+# flax leaf -> torch leaf of the tensors ``named_from_flax`` carries
+_LEAF = {("params", "kernel"): "weight", ("params", "scale"): "weight",
+         ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
+         ("batch_stats", "var"): "running_var"}
+# flax kernel rank -> torch layout (a Dense kernel, a 1-D and a 2-D conv)
+_BY_RANK = {2: _INV[T_LINEAR], 3: _INV[T_CONV1], 4: _INV[T_CONV2]}
+
+
+def named_from_flax(params: dict, batch_stats: dict | None = None,
+                    rename: dict[str, str] | None = None) -> dict[str, torch.Tensor]:
+    """A flax tree of Dense, Conv, BatchNorm and GroupNorm layers (numpy
+    arrays) -> the state dict of a port module that keeps the flax module
+    names, each joined by ``.``; ``rename`` maps a flax module name to the
+    port's (``ConvBlock_0`` -> ``blocks.0``)."""
+    rename = rename or {}
+    sd = {}
+
+    def walk(kind, tree, path):
+        for k, v in tree.items():
+            if hasattr(v, "items"):
+                walk(kind, v, path + (rename.get(k, k),))
+                continue
+            v = np.array(v)  # a copy: a JAX array's buffer is read-only
+            if kind == "params" and k == "kernel":
+                v = _BY_RANK[v.ndim](v)
+            sd[".".join(path + (_LEAF[(kind, k)],))] = torch.from_numpy(np.ascontiguousarray(v))
+
+    walk("params", params, ())
+    walk("batch_stats", batch_stats or {}, ())
+    return sd
+
+
+FACE_DECODER_RENAME = {**{f"ConvBlock_{i}": f"blocks.{i}" for i in range(4)},
+                       **{f"Conv_{i}": f"up.{i}" for i in range(4)}}
+
+
+def speaker_training_from_flax(params: dict, batch_stats: dict,
+                               speaker_params: dict | None = None) -> dict[str, torch.Tensor]:
+    """The JAX speaker-pretraining ``params`` (``{"face", "decoder", "t"}``)
+    and ``batch_stats`` (``{"face", "decoder"}``), numpy arrays -> the state
+    dict of ``speaker.train_loop.SpeakerTraining``: ``face.*`` under the
+    face net's reference names, ``decoder.*``, ``t``, and with
+    ``speaker_params`` (the frozen voice encoder's params) ``speaker.*``."""
+    variables = {"params": {"vgg_face": params["face"]},
+                 "batch_stats": {"vgg_face": batch_stats["face"]}}
+    sd = {}
+    for tkey, fpath, code in build_entries(ModelConfig()):
+        if tkey.startswith("vgg_face."):
+            val = np.array(_get(variables, fpath))  # a copy: a JAX array is read-only
+            sd["face." + tkey[len("vgg_face."):]] = torch.from_numpy(
+                np.ascontiguousarray(_INV[code](val)))
+    dec = named_from_flax(params["decoder"], batch_stats["decoder"], FACE_DECODER_RENAME)
+    sd.update({f"decoder.{k}": v for k, v in dec.items()})
+    sd["t"] = torch.tensor(float(np.asarray(params["t"])))
+    if speaker_params is not None:
+        sd.update({f"speaker.{k}": v for k, v in speaker_from_flax(speaker_params).items()})
+    return sd

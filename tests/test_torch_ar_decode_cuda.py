@@ -24,8 +24,9 @@ CFG = ModelConfig(ffn_hidden_dim=128, content_vocab_size=33, content_latent_dim=
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 
 
-def decoder_inputs(B: int):
-    """A random small decoder on the card, its AR parameters and inputs."""
+def decoder_inputs(B: int, frames: int = 11):
+    """A random small decoder on the card, its AR parameters and inputs of
+    ``frames`` video frames."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -33,7 +34,7 @@ def decoder_inputs(B: int):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(B)
     dec = init_random_(Decoder(CFG), gen).to(dev).eval()
-    visual = torch.randn(B, 11, CFG.encoder_embedding_dim, generator=gen).to(dev) * 0.3
+    visual = torch.randn(B, frames, CFG.encoder_embedding_dim, generator=gen).to(dev) * 0.3
     face = torch.randn(B, CFG.face_embedding_dim, generator=gen).to(dev) * 0.3
     with torch.no_grad():
         enc = dec.encode(visual, face, generator=torch.Generator(device=dev).manual_seed(0))
@@ -71,6 +72,24 @@ def test_kernel_at_the_eval_tick_shape(weight_dtype):
         torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.shape[0] == 80 and bool(torch.isfinite(g).all())
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) < TOL[weight_dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_the_two_second_bucket(weight_dtype):
+    """WILD's 2-second segments: the eval tick decodes B=32 clips of T=50
+    frames for M=126 steps (1 + 32000 // 256), a longer attention row than
+    the 29 frames of LRW."""
+    p, enc, bos = decoder_inputs(32, frames=50)
+    with torch.no_grad():
+        want = ar.ar_decode_reference(CFG, p, enc, bos, 126, weight_dtype)
+        got = ar.ar_decode(CFG, p, enc, bos, 126, weight_dtype)
+        torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.shape[0] == 126 and bool(torch.isfinite(g).all())
+    assert got[2].shape == (126, 32, 50)
     for g, w in zip(got[:2], want[:2]):
         assert float((g - w).abs().max()) < TOL[weight_dtype]
 

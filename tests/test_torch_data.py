@@ -179,8 +179,10 @@ def test_loader_early_break_leaks_no_thread(roots):
 
 
 def test_get_dataset():
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        tdata.get_dataset("GRID", "/nonexistent")
+    for name, reader in (("LRW", tdata.LRW), ("WILD", tdata.WILD), ("GRID", tdata.GRID),
+                         ("AVSpeech", tdata.AVSpeech), ("avspeech", tdata.AVSpeech)):
+        ds = tdata.get_dataset(name, "/nonexistent", mode="test")
+        assert type(ds) is reader and not ds.items
     with pytest.raises(ValueError):
         tdata.get_dataset("nope", "/nonexistent")
 

@@ -22,6 +22,7 @@ from lip2speech_tpu.models.lip2speech import Lip2Speech as JLip2Speech
 from lip2speech_tpu.train.checkpoint import flax_to_torch
 from lip2speech_torch import weights
 from lip2speech_torch.config import ModelConfig
+from lip2speech_torch.models.layers import FlaxRuleBatchNorm
 from lip2speech_torch.models.lip2speech import Lip2Speech
 from torch_port_common import fill_tree, small_configs, to_plain
 from torch_port_common import one_torch_thread  # noqa: F401 (a fixture)
@@ -63,6 +64,13 @@ def test_from_flax_equals_flax_to_torch_and_loads_strict(size):
     for k in ("decoder.decoder_rnn.weight_ih_l0", "encoder.trunk.0.3.banch2.0.weight",
               "vgg_face.resnet.repeat_2.4.conv2d.weight"):
         assert torch.equal(model.state_dict()[k], got[k])
+    # the face net's BatchNorms train by flax's rule (speaker pretraining)
+    # and load under the same names; in Lip2Speech it stays in eval mode
+    norms = [m for m in model.vgg_face.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    assert len(norms) > 100 and all(isinstance(m, FlaxRuleBatchNorm) for m in norms)
+    assert torch.equal(model.vgg_face.resnet.last_bn.running_var, got["vgg_face.resnet.last_bn.running_var"])
+    model.train()
+    assert not any(m.training for m in model.vgg_face.modules())
 
 
 def test_from_flax_without_face_net():
@@ -104,6 +112,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import lip2speech_torch.ops.estoi\n"
         "import lip2speech_torch.models.discriminator, lip2speech_torch.models.speaker\n"
         "import lip2speech_torch.train.adversarial, lip2speech_torch.cli.demo\n"
+        "import lip2speech_torch.speaker, lip2speech_torch.speaker.dataset\n"
+        "import lip2speech_torch.speaker.losses, lip2speech_torch.speaker.models\n"
+        "import lip2speech_torch.speaker.train_loop, lip2speech_torch.data.face_align\n"
+        "import lip2speech_torch.data.wild, lip2speech_torch.data.streaming\n"
+        "import lip2speech_torch.models.audio_extras\n"
+        "import lip2speech_torch.cli.speaker_train, lip2speech_torch.cli.speaker_test\n"
         "banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lip2speech_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not bad, bad\n"

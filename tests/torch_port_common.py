@@ -172,6 +172,23 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max()) / scale
 
 
+def rel_l2(got: torch.Tensor, want) -> float:
+    """Relative L2 distance of ``got`` from ``want`` (an array or tensor),
+    in float64."""
+    want = torch.from_numpy(np.array(want, dtype=np.float64))  # a copy: JAX arrays are read-only
+    return float((got.double() - want).norm() / (want.norm() or 1.0))
+
+
+def change_agreement(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(share of ``want``'s entries larger than 1e-3 of its largest whose
+    sign ``got`` shares, relative L2 of the difference) of two parameter
+    changes or gradients."""
+    got, want = got.double().reshape(-1), want.double().reshape(-1)
+    big = want.abs() > 1e-3 * float(want.abs().max())
+    sign = float((torch.sign(got[big]) == torch.sign(want[big])).double().mean()) if big.any() else 1.0
+    return sign, float((got - want).norm() / (want.norm() or 1.0))
+
+
 @pytest.fixture(scope="module")
 def one_torch_thread():
     """torch on one thread for a module's tests: test processes run side by
