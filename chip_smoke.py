@@ -84,7 +84,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    gradients) on the GPU against the same step on the CPU (B=4, same
    weights, batch and draws), each held against an f64 step on its own
    ReLU kink sides as phase 4 holds the train step (``TRAIN_*``). Prints ms
-   a step, the peak memory and the losses.
+   a step, the peak memory and the losses;
+10. the face detector and the preprocessing tools, on the repo's trained
+   weights (``lip2speech_tpu/detect/weights/*.npz``, read by path):
+   RFB-320's scores and boxes on the card against the CPU on 32 seeded
+   frames of 256x256 through the host resize to 240x320 (``DETECT_TOL``),
+   the landmark net on 32 seeded 112x112 crops (``LANDMARK_TOL``), and
+   ``FaceDetector`` at the 99.9th percentile of the frames' face scores
+   (the same None pattern, boxes and landmarks within 1 px);
+   ``prep.face_extractor`` over a 64-frame MJPG ``.avi`` (batch 32, its
+   sidecar against the CPU detector's) and a resuming pass;
+   ``prep.wild_preprocess.write_segment`` on a 2-second segment with its
+   wav beside it; ``prep.speaker_preprocess.video_to_frames`` and
+   ``prep.resample.convert_sampling_rate`` on a 22,050 Hz wav. Prints ms
+   per 32-frame detector batch and per landmark forward
+   (``utils.devtime.device_time``) and frames/s through the extractor.
 
 Timings print with the card's name and power limit. The line before the
 last is a JSON object listing each kernel; the last line is
@@ -92,7 +106,8 @@ last is a JSON object listing each kernel; the last line is
 beside this file, it exits non-zero and prints no result.
 
 Usage: python3 chip_smoke.py [--profile | --kernel-only | --train-only | --cli-only |
-                              --adv-only | --demo-only | --corpora-only | --speaker-only]
+                              --adv-only | --demo-only | --corpora-only | --speaker-only |
+                              --prep-only]
 
 ``--profile`` adds, for each timed batch and for a train step, the device
 time by kernel of one batch (torch.profiler) and the device's idle share.
@@ -100,7 +115,8 @@ time by kernel of one batch (torch.profiler) and the device's idle share.
 per-stage times) and prints no result line; ``--train-only`` runs phases 1
 and 4, ``--cli-only`` phases 1 and 5, ``--adv-only`` phases 1 and 6 and
 ``--demo-only`` phases 1 and 7, ``--corpora-only`` phases 1 and 8 and
-``--speaker-only`` phases 1 and 9, and none of them prints a result line.
+``--speaker-only`` phases 1 and 9, ``--prep-only`` phases 1 and 10, and none
+of them prints a result line.
 """
 
 from __future__ import annotations
@@ -203,6 +219,17 @@ WILD_CLIPS, STREAM_CLIPS = 64, 16
 CORPUS_STEPS = 4  # the eval tick at the last; step 1 warms up
 # phase 9: the AVSpeechFace fixture, the CLI's steps, the GPU-vs-CPU batch
 SPEAKER_CLIPS, SPEAKER_STEPS, SPEAKER_CHECK_B = 48, 4, 4
+# phase 10: the face detector on the repo's trained weights, 32 seeded
+# frames at LRW's 256x256 (resized to the detector's 240x320 on the host)
+# and 32 seeded 112x112 crops for the landmark net (batch 1 each: its
+# graph reshapes to (1, -1)); the card against the CPU, TF32 off. The
+# convs sum in other orders on cuDNN than on the CPU (f32, a few 1e-7
+# on the CPU between the port and JAX): RFB-320's scores and boxes within
+# DETECT_TOL, the landmark net's 136 outputs (unit-square coordinates)
+# within LANDMARK_TOL; ``FaceDetector`` the same None pattern and boxes
+# and landmarks within 1 px (both truncate to integers)
+PREP_FRAMES, PREP_SIZE, PREP_VIDEO_FRAMES, PREP_BATCH = 32, 256, 64, 32
+DETECT_TOL, LANDMARK_TOL = 1e-4, 1e-4
 
 
 def fail(msg: str):
@@ -1491,6 +1518,198 @@ def phase_speaker(cfg, card: str, dev) -> None:
                            card, dev)
 
 
+def seeded_frames(n: int, size: int, seed: int):
+    """Random RGB frames, every fourth smoothed (it scores lower: frames
+    without a face at the threshold the phase picks)."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    frames = rng.randint(0, 256, (n, size, size, 3)).astype(np.uint8)
+    for i in range(3, n, 4):
+        frames[i] = cv2.GaussianBlur(frames[i], (0, 0), 6)
+    return frames
+
+
+def write_mjpg(path: str, frames) -> None:
+    import cv2
+
+    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 25,
+                          (frames.shape[2], frames.shape[1]))
+    for f in frames:
+        out.write(f[:, :, ::-1])
+    out.release()
+
+
+def same_detections(got, want) -> tuple[bool, int]:
+    """(same None pattern with boxes and landmarks within 1 px, largest px gap)."""
+    import numpy as np
+
+    if [r is None for r in got] != [r is None for r in want]:
+        return False, -1
+    gap = max([0] + [int(max(np.abs(g[0] - w[0]).max(), np.abs(g[1] - w[1]).max()))
+                     for g, w in zip(got, want) if w is not None])
+    return gap <= 1, gap
+
+
+def phase_prep(card: str, dev) -> None:
+    """The face detector and the preprocessing tools (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from lip2speech_torch.detect import FaceDetector
+    from lip2speech_torch.prep import face_extractor, resample, speaker_preprocess
+    from lip2speech_torch.prep import wild_preprocess
+    from lip2speech_torch.utils.devtime import device_time
+
+    cpu = torch.device("cpu")
+    t0 = time.time()
+    det_cpu = FaceDetector(device=cpu)
+    det = FaceDetector(device=dev)
+    print(f"prep: two detectors (CPU and {dev}) from the repo's weights in "
+          f"{time.time() - t0:.1f} s")
+
+    # RFB-320 on the card against the CPU, 32 frames through the host resize
+    frames = seeded_frames(PREP_FRAMES, PREP_SIZE, SEED)
+    x = torch.from_numpy(np.ascontiguousarray(FaceDetector.detector_input(frames)))
+    want = det_cpu.detect_fn(x)
+    x_dev = x.to(dev)
+    got = det.detect_fn(x_dev)
+    err = max(float((got[k].cpu() - want[k]).abs().max()) for k in ("scores", "boxes"))
+    print(f"prep: RFB-320 B={PREP_FRAMES} 240x320 on {dev} vs CPU: max abs err {err:.3e} "
+          f"(tol {DETECT_TOL})")
+    if not err <= DETECT_TOL:
+        fail(f"RFB-320 on the card is {err:.3e} off the CPU")
+    ms = device_time(det.detect_fn, x_dev, n=10, repeats=5) * 1e3
+    print(f"prep: RFB-320 {ms:.3f} ms per {PREP_FRAMES}-frame batch on the card "
+          f"(devtime.device_time) [{card}]")
+
+    # the landmark net, batch 1 each
+    crops = np.random.RandomState(SEED + 1).uniform(
+        0, 1, (PREP_FRAMES, 1, 3, 112, 112)).astype(np.float32)
+    lerr = 0.0
+    for c in crops:
+        c = torch.from_numpy(c)
+        out = det.landmark_fn(c.to(dev))
+        lerr = max(lerr, float((out.cpu() - det_cpu.landmark_fn(c)).abs().max()))
+        if out.shape != (1, 136):
+            fail(f"the landmark net gave {tuple(out.shape)}")
+    print(f"prep: landmark net {PREP_FRAMES} crops at batch 1 on {dev} vs CPU: max abs err "
+          f"{lerr:.3e} (tol {LANDMARK_TOL})")
+    if not lerr <= LANDMARK_TOL:
+        fail(f"the landmark net on the card is {lerr:.3e} off the CPU")
+    ms = device_time(det.landmark_fn, torch.from_numpy(crops[0]).to(dev), n=20, repeats=5) * 1e3
+    print(f"prep: landmark net {ms:.3f} ms per forward (batch 1) on the card "
+          f"(devtime.device_time) [{card}]")
+
+    # the whole detector at a threshold that gives detections
+    thr = float(np.percentile(want["scores"][..., 1].numpy(), 99.9))
+    det.threshold = det_cpu.threshold = thr
+    res, ref = det(frames), det_cpu(frames)
+    ok, gap = same_detections(res, ref)
+    found = sum(r is not None for r in ref)
+    print(f"prep: FaceDetector(threshold={thr:.4f}) on {PREP_FRAMES} frames: {found} with a "
+          f"face, largest gap to the CPU {gap} px")
+    if not ok or found == 0:
+        fail(f"FaceDetector on the card differs from the CPU (gap {gap}) or found no face")
+
+    with tempfile.TemporaryDirectory(prefix="lip2speech_prep_") as tmp:
+        # face_extractor over a 64-frame MJPG video, then a resuming pass
+        video = os.path.join(tmp, "clip.avi")
+        write_mjpg(video, seeded_frames(PREP_VIDEO_FRAMES, PREP_SIZE, SEED + 2))
+        sidecar = os.path.join(tmp, "clip.json")
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        n = face_extractor.extract_faces_for_video(det, video, sidecar, PREP_BATCH)
+        wall = time.perf_counter() - t0
+        with open(sidecar) as f:
+            first = f.read()
+        ref_sidecar = os.path.join(tmp, "cpu.json")
+        face_extractor.extract_faces_for_video(det_cpu, video, ref_sidecar, PREP_BATCH)
+        with open(ref_sidecar) as f:
+            ref_info = json.load(f)
+        info = json.loads(first)
+        keys_ok = sorted(info) == sorted(ref_info)
+        gap = max([0] + [int(np.abs(np.subtract(info[k][f], ref_info[k][f])).max())
+                         for k in info if k in ref_info for f in ("face_coords", "landmarks")])
+        print(f"prep: face_extractor {PREP_VIDEO_FRAMES} frames (batch {PREP_BATCH}) in "
+              f"{wall * 1e3:.1f} ms, {PREP_VIDEO_FRAMES / wall:.1f} frames/s, {n} with a face; "
+              f"largest gap to the CPU's sidecar {gap} px [{card}]")
+        if n == 0 or not keys_ok or gap > 1:
+            fail("face_extractor's sidecar on the card differs from the CPU's")
+        # where the extractor's time goes, on the host's clock: the decode, the
+        # detector's host resize of a batch, one landmark crop
+        import cv2
+
+        t0 = time.perf_counter()
+        cap = cv2.VideoCapture(video)
+        decoded = []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            decoded.append(f[:, :, ::-1])
+        cap.release()
+        t_decode = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        FaceDetector.detector_input(np.stack(decoded[:PREP_BATCH]))
+        t_resize = time.perf_counter() - t0
+        box = np.array(info[sorted(info, key=int)[0]]["face_coords"])
+        t0 = time.perf_counter()
+        for _ in range(10):
+            FaceDetector.landmark_crop(decoded[0], box)
+        t_crop = (time.perf_counter() - t0) / 10
+        print(f"prep: face_extractor's host parts: decode {PREP_VIDEO_FRAMES} frames "
+              f"{t_decode * 1e3:.1f} ms, resize of a {PREP_BATCH}-frame batch "
+              f"{t_resize * 1e3:.1f} ms, one landmark crop {t_crop * 1e3:.3f} ms [{card}]")
+        calls = []
+
+        def counting(batch):
+            calls.append(len(batch))
+            return det(batch)
+
+        n2 = face_extractor.extract_faces_for_video(counting, video, sidecar, PREP_BATCH)
+        with open(sidecar) as f:
+            if f.read() != first or n2 != n or sum(calls) != PREP_VIDEO_FRAMES - n:
+                fail("face_extractor's resuming pass changed the sidecar or detected again")
+
+        # write_segment on a 2-second segment, its wav beside it (no ffmpeg)
+        seg = os.path.join(tmp, "seg_00000.avi")
+        write_mjpg(seg, seeded_frames(50, PREP_SIZE, SEED + 3))
+        rng = np.random.RandomState(SEED)
+        wavfile.write(os.path.join(tmp, "seg_00000.wav"), 16000,
+                      (0.1 * rng.randn(32000)).astype(np.float32))
+        t0 = time.perf_counter()
+        if not wild_preprocess.write_segment(seg, det):
+            fail("write_segment found no face")
+        wall = time.perf_counter() - t0
+        mel = np.load(os.path.join(tmp, "seg_00000.npz"))["data"]
+        with open(os.path.join(tmp, "seg_00000.json")) as f:
+            seg_faces = len(json.load(f))
+        print(f"prep: write_segment 50 frames + 2 s in {wall * 1e3:.1f} ms: mel "
+              f"{mel.shape}, {seg_faces} faces [{card}]")
+        if mel.shape != (1, 80, 126) or not np.isfinite(mel).all() or not os.path.isfile(
+                os.path.join(tmp, "seg_00000.done")):
+            fail("write_segment wrote no finite mel or no .done marker")
+
+        # the frame dump and the resampler
+        if speaker_preprocess.video_to_frames(video) != PREP_VIDEO_FRAMES or len(
+                os.listdir(os.path.join(tmp, "clip", "frames"))) != PREP_VIDEO_FRAMES:
+            fail("video_to_frames did not dump every frame")
+        wav_dir = os.path.join(tmp, "wavs")
+        os.makedirs(wav_dir)
+        wavfile.write(os.path.join(wav_dir, "a.wav"), 22050,
+                      (0.1 * rng.randn(22050)).astype(np.float32))
+        converted = resample.convert_sampling_rate(wav_dir)
+        sr, data = wavfile.read(os.path.join(wav_dir, "a.wav"))
+        print(f"prep: video_to_frames {PREP_VIDEO_FRAMES} frames; convert_sampling_rate "
+              f"{converted} file to {sr} Hz, {len(data)} samples")
+        if converted != 1 or sr != 16000 or len(data) != 16000:
+            fail("convert_sampling_rate did not resample the 22050 Hz wav")
+
+
 def main() -> int:
     try:
         import torch
@@ -1540,6 +1759,10 @@ def main() -> int:
         phase_speaker(cfg, card, dev)
         print(card)
         return 0
+    if "--prep-only" in sys.argv[1:]:
+        phase_prep(card, dev)
+        print(card)
+        return 0
     results = phase_kernel(cfg, card, dev)
     launches = phase_pipeline(cfg, card, dev, profile=profile)
     phase_train(cfg, card, dev, profile=profile)
@@ -1548,6 +1771,7 @@ def main() -> int:
     at_demo = phase_demo(cfg, card, dev)
     at_corpora = phase_corpora(cfg, card, dev)
     phase_speaker(cfg, card, dev)
+    phase_prep(card, dev)
 
     at_main = results[(MAIN_B, "bfloat16")]
     kernels = [{

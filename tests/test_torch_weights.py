@@ -118,6 +118,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import lip2speech_torch.data.wild, lip2speech_torch.data.streaming\n"
         "import lip2speech_torch.models.audio_extras\n"
         "import lip2speech_torch.cli.speaker_train, lip2speech_torch.cli.speaker_test\n"
+        "import lip2speech_torch.detect, lip2speech_torch.detect.artifacts\n"
+        "import lip2speech_torch.detect.onnx_reader, lip2speech_torch.detect.onnx_torch\n"
+        "import lip2speech_torch.detect.openvino_torch, lip2speech_torch.detect.face_detector\n"
+        "import lip2speech_torch.prep, lip2speech_torch.prep.common\n"
+        "import lip2speech_torch.prep.resample, lip2speech_torch.prep.face_extractor\n"
+        "import lip2speech_torch.prep.lrw_preprocess, lip2speech_torch.prep.wild_preprocess\n"
+        "import lip2speech_torch.prep.speaker_preprocess, lip2speech_torch.prep.detector_demo\n"
+        "import lip2speech_torch.prep.avspeech_acquire, lip2speech_torch.prep.wild_downloader\n"
+        "import lip2speech_torch.utils, lip2speech_torch.utils.logger\n"
+        "import lip2speech_torch.utils.devtime\n"
         "banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lip2speech_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not bad, bad\n"
