@@ -98,7 +98,24 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    wav beside it; ``prep.speaker_preprocess.video_to_frames`` and
    ``prep.resample.convert_sampling_rate`` on a 22,050 Hz wav. Prints ms
    per 32-frame detector batch and per landmark forward
-   (``utils.devtime.device_time``) and frames/s through the extractor.
+   (``utils.devtime.device_time``) and frames/s through the extractor;
+11. data parallelism on the one card (``lip2speech_torch/parallel``): two
+   ranks, each a process of this script (``--dp-rank``) with the
+   environment ``torch.distributed.run`` gives a rank, over gloo, run (b)
+   the first f32 step (TF32 off, global B=16, 8 a rank) against one rank on
+   the whole batch with the same draws, then the bf16 step on a staged
+   batch of 64 on one rank and on two, and the gradient bucket's and a
+   forward's BatchNorm moment all-reduces alone; (a) ``cli.train`` on
+   phase 5's fixture at full width, global B=64 bf16, 4 steps with an eval
+   tick (each rank decodes its 16 rows of each eval batch through the AR
+   kernel) and a resume for 1 more step, then the kernel against its plain
+   version on each rank's rows of the first eval batch, the ranks in turn;
+   (d) ``cli.speaker_train`` at B=64 f32 for 2 steps on phase 9's fixture.
+   Then (c) one rank of (a)'s program in an NCCL group for one step.
+   Checks: (b) within ``DP_*``; only rank 0 logs (one record a step);
+   one kernel launch a rank per eval batch; both ranks resume at the saved
+   step and end with the same parameters (a digest), as do the speaker
+   ranks; finite losses. Prints each with the card's name and power limit.
 
 Timings print with the card's name and power limit. The line before the
 last is a JSON object listing each kernel; the last line is
@@ -107,7 +124,7 @@ beside this file, it exits non-zero and prints no result.
 
 Usage: python3 chip_smoke.py [--profile | --kernel-only | --train-only | --cli-only |
                               --adv-only | --demo-only | --corpora-only | --speaker-only |
-                              --prep-only]
+                              --prep-only | --dp-only]
 
 ``--profile`` adds, for each timed batch and for a train step, the device
 time by kernel of one batch (torch.profiler) and the device's idle share.
@@ -115,8 +132,9 @@ time by kernel of one batch (torch.profiler) and the device's idle share.
 per-stage times) and prints no result line; ``--train-only`` runs phases 1
 and 4, ``--cli-only`` phases 1 and 5, ``--adv-only`` phases 1 and 6 and
 ``--demo-only`` phases 1 and 7, ``--corpora-only`` phases 1 and 8 and
-``--speaker-only`` phases 1 and 9, ``--prep-only`` phases 1 and 10, and none
-of them prints a result line.
+``--speaker-only`` phases 1 and 9, ``--prep-only`` phases 1 and 10, ``--dp-only``
+phases 1 and 11, and none of them prints a result line. ``--dp-rank`` is the
+entry of one rank of phase 11.
 """
 
 from __future__ import annotations
@@ -230,6 +248,33 @@ SPEAKER_CLIPS, SPEAKER_STEPS, SPEAKER_CHECK_B = 48, 4, 4
 # and landmarks within 1 px (both truncate to integers)
 PREP_FRAMES, PREP_SIZE, PREP_VIDEO_FRAMES, PREP_BATCH = 32, 256, 64, 32
 DETECT_TOL, LANDMARK_TOL = 1e-4, 1e-4
+# phase 11, data parallelism: ranks on the one card, over gloo (NCCL runs one
+# rank a card); the CLI's steps, the resume's, the speaker CLI's
+DP_RANKS, DP_STEPS, DP_RESUMED, DP_SPEAKER_STEPS = 2, 4, 1, 2
+# one rank against two on the first f32 step (TF32 off), global batch
+# DP_CHECK_B, the same draws: the losses within DP_LOSS_RTOL plus
+# DP_LOSS_ATOL (the KLD is a small difference of logs: ~1e-5, and 2.8e-8
+# apart in a CPU rehearsal; tests/test_torch_train_step.py's floor), the new
+# statistics within DP_STAT_RTOL (plus TRAIN_FLOOR of the
+# largest of their kind: running means behind a BatchNorm are 0 up to
+# rounding); the parameters by JAX's caps for its DP step against one
+# device (tests/test_train_step.py:258-265): no entry more than
+# 2.5 * lr apart, and at most total / 2000 (decoder) or total / 50
+# (encoder) entries more than lr / 20 apart (AMSGrad's first step is
+# ~sign(g) * lr, so an entry whose gradient is 0 up to rounding may flip)
+DP_CHECK_B, DP_LOSS_RTOL, DP_LOSS_ATOL, DP_STAT_RTOL = 16, 1e-5, 1e-6, 1e-4
+# the gradient norms (the whole, the encoder's, the decoder's) within
+# DP_NORM_RTOL: the f32 gradients come back through the 80-step loop's
+# backward and the encoder's ReLU kinks, where the other reduction order of a
+# batch of 8 against 16 moves them: 3.483e-04 to 3.490e-04 on the whole,
+# 3.502e-04 to 3.504e-04 on the encoder's and 2.141e-04 on the decoder's
+# measured on an H100, so about 3x the largest reading (JAX's own DP test,
+# tests/test_train_step.py:254, allows 1e-2). The same step in f64 must agree
+# within TRAIN_F64_REL (losses and gradient norms): there only the order of
+# the reductions differs
+DP_NORM_RTOL = 1e-3
+DP_TIMED = 3
+DP_TIMEOUT_S = 600
 
 
 def fail(msg: str):
@@ -843,23 +888,15 @@ def _step_rows(run_dir: str) -> tuple[list[dict], list[dict]]:
     return [r for r in rows if "total" in r], [r for r in rows if "eval/estoi" in r]
 
 
-def eval_batch_checks(cfg, model, ds, dev, card: str) -> dict:
-    """On the first eval batch (32 test clips, f32 weights): the AR kernel
-    against its plain version at the eval tick's shape (M=80), with their
-    times and the bound; and the device ESTOI against the host's on the
-    waveforms of that batch."""
-    import numpy as np
+def ar_decode_on_rows(cfg, model, batch, dev, label: str, card: str) -> dict:
+    """The AR kernel against its plain version on a prepared eval batch
+    (f32 weights, the mels' M steps), with their times and the bound;
+    fails beyond ``TOL['float32']``."""
     import torch
 
-    from lip2speech_torch.data.collate import collate, prepare_batch, to_device
-    from lip2speech_torch.eval import evaluate
     from lip2speech_torch.kernels import ar_decode as ar
-    from lip2speech_torch.ops import estoi as estoi_ops
 
-    B = min(32, len(ds))
-    raw = collate([ds[i] for i in range(B)], cfg.data)
-    batch = prepare_batch(to_device(raw, dev), cfg.audio, cfg.data)
-    M = batch["mel"].shape[-1]
+    B, M = batch["mel"].shape[0], batch["mel"].shape[-1]
     model.eval()
     with torch.no_grad():
         feats = model.encoder(batch["video"])
@@ -878,13 +915,38 @@ def eval_batch_checks(cfg, model, ds, dev, card: str) -> dict:
     flops, nbytes = ar_decode_work(cfg.model, B, enc["k"].shape[1], enc["content_key"].shape[1],
                                    M, 4)
     bms, by = bound_ms(flops, nbytes, "float32")
-    print(f"ar_decode on an eval batch (B={B}, T={enc['k'].shape[1]}, M={M}, f32): max|err| mel "
+    print(f"ar_decode on {label} (B={B}, T={enc['k'].shape[1]}, M={M}, f32): max|err| mel "
           f"{errs[0]:.3e} stop "
           f"{errs[1]:.3e} attn {errs[2]:.3e} (tol {TOL['float32']}); kernel {ms:.3f} ms, plain "
           f"{plain:.3f} ms, bound {bms:.4f} ms ({by}) [{card}]")
     if any(e > t for e, t in zip(errs, TOL["float32"])) or not all(
             bool(torch.isfinite(g).all()) for g in got):
-        fail("the AR kernel disagrees with its plain version on an eval batch")
+        fail(f"the AR kernel disagrees with its plain version on {label}")
+    return {"err": max(errs), "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
+
+
+def eval_rows(cfg, ds, rows, dev) -> tuple[dict, dict]:
+    """(the collated clips ``rows`` of ``ds``, prepared on ``dev``)."""
+    from lip2speech_torch.data.collate import collate, prepare_batch, to_device
+
+    raw = collate([ds[i] for i in rows], cfg.data)
+    return raw, prepare_batch(to_device(raw, dev), cfg.audio, cfg.data)
+
+
+def eval_batch_checks(cfg, model, ds, dev, card: str) -> dict:
+    """On the first eval batch (32 test clips, f32 weights): the AR kernel
+    against its plain version at the eval tick's shape (M=80), with their
+    times and the bound; and the device ESTOI against the host's on the
+    waveforms of that batch."""
+    import numpy as np
+    import torch
+
+    from lip2speech_torch.eval import evaluate
+    from lip2speech_torch.ops import estoi as estoi_ops
+
+    B = min(32, len(ds))
+    raw, batch = eval_rows(cfg, ds, range(B), dev)
+    k1 = ar_decode_on_rows(cfg, model, batch, dev, "an eval batch", card)
 
     program = evaluate.eval_program(model, cfg, GL_ITERS, "estoi")
     with torch.no_grad():
@@ -917,7 +979,7 @@ def eval_batch_checks(cfg, model, ds, dev, card: str) -> dict:
           f"max |device - host| {gap:.3e} (tol {ESTOI_TOL}), mean {host.mean():.4f} [{card}]")
     if not np.isfinite(dev_scores).all() or gap > ESTOI_TOL:
         fail("the device ESTOI disagrees with the host's")
-    return {"err": max(errs), "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
+    return k1
 
 
 def phase_cli(cfg, card: str, dev) -> dict:
@@ -1710,7 +1772,476 @@ def phase_prep(card: str, dev) -> None:
             fail("convert_sampling_rate did not resample the 22050 Hz wav")
 
 
+def free_ports(n: int) -> list[int]:
+    """``n`` distinct free ports on this host."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def next_group_port():
+    """Point ``MASTER_PORT`` at the next of the ports ``run_ranks`` handed
+    this rank: a group started right after another on the same port could
+    reach the previous group's store before rank 0 has closed it."""
+    ports = os.environ["DP_PORTS"].split(",")
+    i = int(os.environ.get("DP_PORT_INDEX", "0"))
+    os.environ["MASTER_PORT"], os.environ["DP_PORT_INDEX"] = ports[i], str(i + 1)
+
+
+def run_ranks(world: int, job: str, tmp: str, dev, cfg) -> list[dict]:
+    """Run ``world`` ranks of ``job`` (``dp_rank``), each a process of this
+    script with the environment ``torch.distributed.run`` gives a rank.
+    Fails as soon as a rank exits non-zero (the others are killed), and
+    after ``DP_TIMEOUT_S``. Returns each rank's result. On the CPU (a
+    rehearsal) the ranks get this process's constants and ``cfg``."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", WORLD_SIZE=str(world),
+               LOCAL_WORLD_SIZE=str(world), DP_PORTS=",".join(map(str, free_ports(8))))
+    if str(dev) == "cpu":
+        env["CHIP_SMOKE_REHEARSAL"] = json.dumps({"overrides": _overrides(cfg), "constants": {
+            k: globals()[k] for k in ("TRAIN_B", "DP_CHECK_B", "SPEAKER_CLIPS", "CLI_EVAL_BATCHES")}})
+    procs, logs = [], []
+    for rank in range(world):
+        logs.append(open(os.path.join(tmp, f"{job}_rank{rank}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", job, tmp, str(dev)],
+            env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)), stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    while any(p.poll() is None for p in procs) and not any(p.poll() for p in procs):
+        if time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for f in logs:
+        f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in range(world):
+            with open(os.path.join(tmp, f"{job}_rank{r}.log")) as f:
+                sys.stderr.write(f"--- {job} rank {r} (exit {procs[r].returncode}):\n"
+                                 f"{f.read()[-6000:]}\n")
+        fail(f"the {world}-rank {job} run failed on rank(s) {bad}")
+    results = []
+    for rank in range(world):
+        with open(os.path.join(tmp, f"{job}_rank{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def state_hash(module) -> str:
+    """A digest of every tensor of ``module``'s state, bit for bit."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for k, v in sorted(module.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().reshape(-1).contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def param_caps(before: dict, want: dict, got: dict, lr: float) -> dict:
+    """JAX's statistics of a DP step against one device's, by part
+    (``encoder``, ``decoder``): the worst entry's distance between the
+    trained parameters ``got`` and ``want``, the entries more than lr / 20
+    apart and the total; and, of the changes from ``before``, the share of
+    the one-rank change's entries above lr / 2 whose sign the other shares,
+    and their relative L2 distance (``change_agreement``)."""
+    import torch
+
+    out = {}
+    want, got = ({k: v.detach() for k, v in d.items()} for d in (want, got))
+    for part in ("encoder", "decoder"):
+        worst, bad, total, agree, n_big, diff2, norm2 = 0.0, 0, 0, 0, 0, 0.0, 0.0
+        for k in before:
+            if not k.startswith(part + "."):
+                continue
+            d = (got[k] - want[k]).abs().double()
+            worst = max(worst, float(d.max()))
+            bad += int((d > 0.05 * lr).sum())
+            total += d.numel()
+            ref, have = (want[k] - before[k]).double(), (got[k] - before[k]).double()
+            big = ref.abs() > 0.5 * lr
+            agree += int((torch.sign(have[big]) == torch.sign(ref[big])).sum())
+            n_big += int(big.sum())
+            diff2 += float(((have - ref) ** 2).sum())
+            norm2 += float((ref ** 2).sum())
+        out[part] = {"worst": worst, "bad": bad, "total": total,
+                     "sign": agree / max(n_big, 1), "l2": (diff2 / max(norm2, 1e-300)) ** 0.5}
+    return out
+
+
+LOSSES = ("mel_loss", "postnet_mel_loss", "gate_loss", "KLD", "total")
+
+
+def dp_step_check(cfg, dev, card: str) -> dict:
+    """Phase 11 (b): the first f32 step on one rank against two, the same
+    global batch and draws; then the bf16 step's ms on one rank against
+    two on a staged batch, and the collectives' ms."""
+    import numpy as np
+    import torch
+
+    from lip2speech_torch.models.layers import FlaxRuleBatchNorm
+    from lip2speech_torch.models.lip2speech import Lip2Speech, init_random_
+    from lip2speech_torch.parallel import dist as pdist
+    from lip2speech_torch.train.train_step import (apply_update, batch_norm_stats,
+                                                   create_train_state, loss_and_grad,
+                                                   step_draws, train_step)
+
+    def step_with_norms(st, b, group):
+        """``train_step``'s two halves, and the norms of the encoder's and
+        the decoder's gradients (over every rank's share)."""
+        gen = step_draws(SEED, st.step, dev, group, b["mel"].shape[0])
+        losses, stats, grads = loss_and_grad(st, b, TRAIN_TF, cfg32, None, gen, group)
+        g = pdist.all_reduce_(st.opt.flatten(grads, dtype=None), group)
+        enc = torch.cat([torch.full((p.numel(),), n.startswith("encoder."), device=dev)
+                         for n, p in zip(st.opt.names, st.opt.params)])
+        norms = [float(torch.sqrt(torch.sum(g[m] ** 2))) for m in (enc, ~enc)]
+        return apply_update(st, cfg32, losses, stats, grads, group), norms
+
+    def f64_step(rows, group):
+        """The losses and gradient norms of the same first step in f64."""
+        model = init_random_(Lip2Speech(cfg.model), torch.Generator().manual_seed(SEED))
+        st = create_train_state(cfg32, model.double().to(dev))
+        b = {k: v.double() if v.is_floating_point() else v for k, v in rows.items()}
+        metrics, norms = step_with_norms(st, b, group)
+        return [float(metrics[k]) for k in LOSSES] + norms
+
+    next_group_port()
+    dp = pdist.init_from_env(str(dev), "gloo")
+    try:
+        cfg32 = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, bf16=False))
+        model = init_random_(Lip2Speech(cfg.model), torch.Generator().manual_seed(SEED))
+        state = create_train_state(cfg32, model.to(dev))
+        batch = make_train_batch(cfg, DP_CHECK_B, SEED + 5, dev)
+        batch.pop("audio"), batch.pop("audio_lengths")
+        local = {k: pdist.local_rows(v, dp.rank, dp.world) for k, v in batch.items()}
+        before = {n: p.detach().clone() for n, p in zip(state.opt.names, state.opt.params)}
+        out = {}
+        if dp.rank == 0:
+            ref = copy.deepcopy(state)
+            want, want_norms = step_with_norms(ref, batch, None)
+        got, got_norms = step_with_norms(state, local, dp)
+        out["same_on_ranks"] = pdist.same_on_all_ranks(list(state.model.state_dict().values()), dp)
+        if dp.rank == 0:
+            out["losses"] = {k: [float(got[k]), float(want[k])] for k in LOSSES}
+            out["grad_norm"] = [float(got["grad_norm"]), float(want["grad_norm"])]
+            out["part_norms"] = {part: [g, w] for part, g, w in
+                                 zip(("encoder", "decoder"), got_norms, want_norms)}
+            mine, theirs = batch_norm_stats(state.model), batch_norm_stats(ref.model)
+            kind_peak = {}
+            for k, v in theirs.items():
+                kind = k.rsplit(".", 1)[-1]
+                kind_peak[kind] = max(kind_peak.get(kind, 0.0), float(v.abs().max()))
+            out["stats"] = max(
+                float((mine[k] - v).abs().max())
+                / (DP_STAT_RTOL * float(v.abs().max()) + TRAIN_FLOOR * kind_peak[k.rsplit(".", 1)[-1]])
+                for k, v in theirs.items())  # <= 1 within the tolerance
+            out["params"] = param_caps(before, dict(zip(ref.opt.names, ref.opt.params)),
+                                       dict(zip(state.opt.names, state.opt.params)),
+                                       cfg.train.learning_rate)
+            del ref
+        del before
+        # the same step in f64: only the order of the reductions differs
+        if dp.rank == 0:
+            want64 = f64_step(batch, None)
+        got64 = f64_step(local, dp)
+        if dp.rank == 0:
+            out["f64"] = max(abs(g - w) / abs(w) for g, w in zip(got64, want64))
+        # the bf16 step on a staged batch: one rank on the whole batch, then two
+        batch = make_train_batch(cfg, TRAIN_B, SEED + 6, dev)
+        batch.pop("audio"), batch.pop("audio_lengths")
+        local = {k: pdist.local_rows(v, dp.rank, dp.world) for k, v in batch.items()}
+
+        def timed(fn):
+            fn()
+            ms = []
+            for _ in range(DP_TIMED):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(ms))
+
+        if dp.rank == 0:
+            alone = copy.deepcopy(state)
+            out["one_rank_ms"] = timed(lambda: train_step(alone, batch, TRAIN_TF, cfg))
+            del alone
+        pdist.barrier(dp)
+        out["two_rank_ms"] = timed(lambda: train_step(state, local, TRAIN_TF, cfg, dp=dp))
+        # the collectives alone: the gradient bucket, a forward's BatchNorm moments
+        g = torch.zeros(sum(p.numel() for p in state.opt.params), device=dev)
+        out["grad_mib"] = g.numel() * 4 / 2**20
+        out["grad_allreduce_ms"] = timed(lambda: pdist.all_reduce_(g, dp))
+        moments = [torch.zeros(2 * m.num_features + 1, device=dev)
+                   for part in (state.model.encoder, state.model.decoder)
+                   for m in part.modules() if isinstance(m, FlaxRuleBatchNorm)]
+        out["bn_layers"] = len(moments)
+
+        def bn_round():
+            for t in moments:
+                pdist.all_reduce_(t, dp)
+
+        out["bn_allreduce_ms"] = timed(bn_round)
+        return out
+    finally:
+        pdist.shutdown(dp)
+
+
+def dp_cli(cfg, tmp: str, dev, card: str) -> dict:
+    """Phase 11 (a): this rank of ``cli.train`` over gloo (steps, an eval
+    tick through K1, a resume); K1 against its plain version on this
+    rank's rows of the first eval batch."""
+    import torch
+
+    from lip2speech_torch.cli import train as train_cli
+    from lip2speech_torch.data import get_dataset
+    from lip2speech_torch.kernels import ar_decode as ar
+    from lip2speech_torch.parallel import dist as pdist
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    root = os.path.join(tmp, "lrw")
+    extra = ("--dist_backend", "gloo")
+    # the main path: the kernel's launches count from here
+    next_group_port()
+    ar.launches = 0
+    first = train_cli.train(_cli_args(root, tmp, "dp", dev, "--max_iters", str(DP_STEPS),
+                                      "--eval_interval", str(DP_STEPS), *extra), cfg)
+    if str(dev) != "cpu":
+        torch.cuda.synchronize(dev)
+    launches = ar.launches
+    per = min(32, TRAIN_B) // world
+    ds = get_dataset("LRW", root, mode="test", cfg=cfg.data)
+    _, batch = eval_rows(cfg, ds, range(rank * per, (rank + 1) * per), dev)
+    next_group_port()
+    dp = pdist.init_from_env(str(dev), "gloo")  # the ranks take the card in turn
+    try:
+        for turn in range(world):
+            if turn == rank:
+                k1 = ar_decode_on_rows(cfg, first["state"].model, batch, dev,
+                                       f"rank {rank}'s eval rows", card)
+            pdist.barrier(dp)
+    finally:
+        pdist.shutdown(dp)
+    next_group_port()
+    second = train_cli.train(_cli_args(root, tmp, "dp", dev, "--max_iters",
+                                       str(DP_STEPS + DP_RESUMED), "--eval_interval", "1000",
+                                       *extra), cfg)
+    return {"launches": launches, "k1": k1, "best": first["best_score"],
+            "start": second["start_step"], "start_best": second["start_best_score"],
+            "final": second["final_step"], "hash": state_hash(second["state"].model)}
+
+
+def dp_speaker(cfg, tmp: str, dev) -> dict:
+    """Phase 11 (d): this rank of ``cli.speaker_train`` over gloo."""
+    from lip2speech_torch.cli import speaker_train
+
+    next_group_port()
+    state = speaker_train.train(speaker_train.parse_args([
+        "--root", os.path.join(tmp, "avspeech"), "--batch_size", str(TRAIN_B), "--max_iters",
+        str(DP_SPEAKER_STEPS), "--log_interval", "1", "--device", str(dev), "--dist_backend",
+        "gloo", "--run_dir", os.path.join(tmp, "run_speaker"), "--ckpt_dir",
+        os.path.join(tmp, "ckpt_speaker")]), cfg)
+    return {"step": state.step, "hash": state_hash(state.model)}
+
+
+def dp_rank(job: str, tmp: str, device: str) -> int:
+    """One rank of phase 11, started by ``run_ranks``: ``main`` runs (b),
+    (a) and (d) over gloo, ``nccl`` one step of (a)'s program in an NCCL
+    group. Writes the rank's result as JSON beside its log."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from lip2speech_torch.config import Config, config_with_overrides
+
+    cfg, dev = Config(), torch.device(device)
+    rehearsal = json.loads(os.environ.get("CHIP_SMOKE_REHEARSAL", "null"))
+    if rehearsal is not None:
+        cfg = config_with_overrides(*rehearsal["overrides"][1::2])
+        globals().update(rehearsal["constants"])
+        _rehearse_on_cpu()
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        card = card_line()
+    else:
+        card = "the CPU (a rehearsal)"
+    if job == "main":
+        out = {"step": dp_step_check(cfg, dev, card), "cli": dp_cli(cfg, tmp, dev, card),
+               "speaker": dp_speaker(cfg, tmp, dev)}
+    else:
+        from lip2speech_torch.cli import train as train_cli
+
+        next_group_port()
+        res = train_cli.train(_cli_args(os.path.join(tmp, "lrw"), tmp, "nccl", dev, "--max_iters",
+                                        "1", "--eval_interval", "1000", "--multihost",
+                                        "--dist_backend", "nccl"), cfg)
+        out = {"final": res["final_step"]}
+    with open(os.path.join(tmp, f"{job}_rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _rehearse_on_cpu():
+    """A rank of a CPU rehearsal: the kernel's plain version in its place,
+    host clocks for the device's."""
+    import torch
+
+    from lip2speech_torch.kernels import ar_decode as ar
+
+    real = ar.ar_decode_reference
+
+    def counted(*a, **k):
+        ar.launches += 1
+        return real(*a, **k)
+
+    ar.ar_decode_cuda = counted
+    import lip2speech_torch.models.decoder as decoder_mod
+
+    decoder_mod.ar_decode = lambda cfg, p, enc, bos, n, weight_dtype=None: counted(
+        cfg, p, enc, bos, n, weight_dtype)
+    torch.cuda.synchronize = lambda *a, **k: None
+
+    def host_ms(fn, reps):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    globals()["cuda_ms"] = host_ms
+
+
+def phase_dp(cfg, card: str, dev) -> dict:
+    """Data parallelism on the card (see the module docstring); returns the
+    AR kernel's numbers on the ranks' eval ticks for the kernels line."""
+    import numpy as np
+
+    from lip2speech_torch.data import make_sample_avspeech_face
+
+    if str(dev) != "cpu":
+        import torch
+
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="lip2speech_dp_") as tmp:
+        t0 = time.time()
+        write_fixture(os.path.join(tmp, "lrw"))
+        make_sample_avspeech_face(os.path.join(tmp, "avspeech"), "train", n_clips=SPEAKER_CLIPS,
+                                  n_frames=60, seed=SEED)
+        print(f"dp: fixtures in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        ranks = run_ranks(DP_RANKS, "main", tmp, dev, cfg)
+        print(f"dp: {DP_RANKS} ranks over gloo on one card, (b) + (a) + (d) in "
+              f"{time.time() - t0:.1f} s (process start-up included)")
+
+        faults = []  # every result prints before the phase fails
+
+        # (b) one rank against two, the first f32 step
+        st = ranks[0]["step"]
+        # each loss's distance over its tolerance
+        loss_rel = max(abs(g - w) / (DP_LOSS_RTOL * abs(w) + DP_LOSS_ATOL)
+                       for g, w in st["losses"].values())
+        norm_rel = {k: abs(g - w) / w for k, (g, w) in
+                    [("total", st["grad_norm"]), *st["part_norms"].items()]}
+        lr = cfg.train.learning_rate
+        caps = {"encoder": 50, "decoder": 2000}
+        print(f"dp step f32 B={DP_CHECK_B} ({DP_CHECK_B // DP_RANKS} a rank) against one rank: "
+              f"total {st['losses']['total'][0]:.6f} / {st['losses']['total'][1]:.6f}, the losses "
+              f"at {loss_rel:.3f} of their tolerance; gradient norms rel " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in norm_rel.items()) + f" (tol {DP_NORM_RTOL} each); "
+              f"statistics at {st['stats']:.3f} of their tolerance; "
+              + "; ".join(f"{part}: worst {p['worst']:.3e} (cap {2.5 * lr:.1e}), {p['bad']} of "
+                          f"{p['total']} entries over lr/20 (cap {max(10, p['total'] // caps[part])}),"
+                          f" sign {p['sign']:.5f}, L2 {p['l2']:.3e}"
+                          for part, p in st["params"].items()) + f"; the same step in f64: "
+              f"losses and gradient norms rel {st['f64']:.3e} (tol {TRAIN_F64_REL}) [{card}]")
+        if not all(r["step"]["same_on_ranks"] for r in ranks):
+            faults.append("the ranks' parameters differ after a data-parallel step")
+        if loss_rel > 1.0 or st["stats"] > 1.0 or max(norm_rel.values()) > DP_NORM_RTOL or (
+                st["f64"] > TRAIN_F64_REL) or any(
+                p["worst"] > 2.5 * lr or p["bad"] > max(10, p["total"] // caps[part])
+                for part, p in st["params"].items()):
+            faults.append("the two-rank step disagrees with the one-rank step")
+        print(f"dp step bf16 B={TRAIN_B} on a staged batch: one rank {st['one_rank_ms']:.2f} ms, "
+              f"{DP_RANKS} ranks ({TRAIN_B // DP_RANKS} each) on the one card over gloo "
+              f"{ranks[0]['step']['two_rank_ms']:.2f} / {ranks[1]['step']['two_rank_ms']:.2f} ms; "
+              f"the {st['grad_mib']:.1f} MiB gradient all-reduce {st['grad_allreduce_ms']:.2f} ms; "
+              f"the {st['bn_layers']} BatchNorm moment all-reduces of a forward "
+              f"{st['bn_allreduce_ms']:.2f} ms [{card}]")
+
+        # (a) the training CLI on two ranks
+        cli = [r["cli"] for r in ranks]
+        rows, evals = _step_rows(os.path.join(tmp, "run_dp"))
+        steps = [r["step"] for r in rows]
+        eval_batches = min(CLI_EVAL_BATCHES, -(-CLI_TEST_CLIPS // min(32, TRAIN_B)))
+        print(f"dp cli B={TRAIN_B} ({TRAIN_B // DP_RANKS} a rank): steps logged {steps}, "
+              f"{float(np.median([r['step_time'] * 1e3 for r in rows[1:DP_STEPS]])):.2f} ms per step "
+              f"with the loader (median of steps 2-{DP_STEPS}), eval ESTOI {cli[0]['best']:.4f}; "
+              f"ar_decode launches by rank {[c['launches'] for c in cli]} for {eval_batches} eval "
+              f"batches; resumed at {[c['start'] for c in cli]}, ended at "
+              f"{[c['final'] for c in cli]}; checkpoints {sorted(os.listdir(os.path.join(tmp, 'ckpt_dp')))} "
+              f"[{card}]")
+        for r, c in enumerate(cli):
+            print(f"dp rank {r}: ar_decode on its eval rows: max|err| {c['k1']['err']:.3e}, kernel "
+                  f"{c['k1']['ms']:.3f} ms, plain {c['k1']['plain_ms']:.3f} ms, bound "
+                  f"{c['k1']['bound_ms']:.4f} ms [{card}]")
+        if steps != list(range(1, DP_STEPS + DP_RESUMED + 1)) or len(evals) != 1:
+            faults.append(f"metrics.jsonl holds steps {steps} and {len(evals)} eval records: "
+                          "not rank 0's alone")
+        if not all(math.isfinite(r["total"]) for r in rows):
+            faults.append("the data-parallel CLI logged a non-finite loss")
+        if any(c["launches"] != eval_batches for c in cli):
+            faults.append("a rank's eval tick did not launch the AR kernel once per batch")
+        if any(c["start"] != DP_STEPS or c["final"] != DP_STEPS + DP_RESUMED
+               or c["start_best"] != cli[0]["best"] for c in cli):
+            faults.append("a rank did not resume where rank 0 saved")
+        if len({c["hash"] for c in cli}) != 1:
+            faults.append("the ranks end the CLI run with different parameters")
+
+        # (d) the speaker CLI on two ranks
+        sp = [r["speaker"] for r in ranks]
+        with open(os.path.join(tmp, "run_speaker", "metrics.jsonl")) as f:
+            srows = [json.loads(line) for line in f]
+        print(f"dp speaker B={TRAIN_B} f32 ({TRAIN_B // DP_RANKS} a rank): steps "
+              f"{[r['step'] for r in srows]}, loss {[round(r['loss'], 4) for r in srows]}, ms "
+              f"{[round(r['step_time'] * 1e3, 2) for r in srows]}; the same weights on every rank: "
+              f"{len({s['hash'] for s in sp}) == 1} [{card}]")
+        if [r["step"] for r in srows] != list(range(1, DP_SPEAKER_STEPS + 1)) or not all(
+                math.isfinite(r["loss"]) for r in srows):
+            faults.append("the data-parallel speaker CLI logged other steps or a non-finite loss")
+        if len({s["hash"] for s in sp}) != 1 or any(s["step"] != DP_SPEAKER_STEPS for s in sp):
+            faults.append("the speaker ranks end with different weights")
+
+        # (c) one rank in an NCCL group
+        if str(dev) != "cpu":
+            t0 = time.time()
+            nccl = run_ranks(1, "nccl", tmp, dev, cfg)[0]
+            nrows, _ = _step_rows(os.path.join(tmp, "run_nccl"))
+            print(f"dp nccl: one rank, {len(nrows)} step in {time.time() - t0:.1f} s (start-up "
+                  f"included), total {nrows[0]['total']:.4f} [{card}]")
+            if nccl["final"] != 1 or len(nrows) != 1 or not math.isfinite(nrows[0]["total"]):
+                faults.append("the one-rank NCCL run did not take its step")
+        if faults:
+            fail("; ".join(faults))
+        return {"launches": [c["launches"] for c in cli], "err": max(c["k1"]["err"] for c in cli)}
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_rank(*sys.argv[2:5])
     try:
         import torch
     except ImportError:
@@ -1763,6 +2294,10 @@ def main() -> int:
         phase_prep(card, dev)
         print(card)
         return 0
+    if "--dp-only" in sys.argv[1:]:
+        phase_dp(cfg, card, dev)
+        print(card)
+        return 0
     results = phase_kernel(cfg, card, dev)
     launches = phase_pipeline(cfg, card, dev, profile=profile)
     phase_train(cfg, card, dev, profile=profile)
@@ -1772,6 +2307,7 @@ def main() -> int:
     at_corpora = phase_corpora(cfg, card, dev)
     phase_speaker(cfg, card, dev)
     phase_prep(card, dev)
+    at_dp = phase_dp(cfg, card, dev)
 
     at_main = results[(MAIN_B, "bfloat16")]
     kernels = [{
@@ -1810,6 +2346,11 @@ def main() -> int:
         "wild_eval_ms": at_corpora["ms"],
         "wild_eval_plain_ms": at_corpora["plain_ms"],
         "wild_eval_bound_ms": at_corpora["bound_ms"],
+        # data parallelism (phase 11): launches in each rank's eval tick of
+        # the two-rank CLI run on the one card; the largest error of the
+        # kernel against its plain version on a rank's eval rows (B=16, f32)
+        "dp_eval_launches": at_dp["launches"],
+        "dp_eval_max_abs_err": at_dp["err"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -4,6 +4,11 @@ Counterpart of ``lip2speech_tpu/cli/common.py``. ``load_model`` takes a
 reference ``.pth``, a checkpoint directory of this port
 (``train/checkpoint.py``) or, with no path, random weights from the
 config's seed; a path that is given but unusable raises.
+
+``start_data_parallel`` joins the process group of a run launched by
+``torch.distributed.run`` (``parallel/dist.py``) and picks the rank's
+device; ``--dist_backend`` names the collectives' backend, as JAX's
+``jax_cpu_collectives_implementation`` does for its CPU collectives.
 """
 
 from __future__ import annotations
@@ -15,7 +20,9 @@ import torch
 
 from lip2speech_torch import weights
 from lip2speech_torch.config import Config, config_with_overrides
+from lip2speech_torch.models.layers import resolve_device
 from lip2speech_torch.models.lip2speech import Lip2Speech, init_random_
+from lip2speech_torch.parallel import dist as pdist
 from lip2speech_torch.train import checkpoint as ckpt
 
 DATASETS = ("LRW", "GRID", "AVSpeech", "WILD")
@@ -31,6 +38,23 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="config override key=value (e.g. model.gumbel_tau=0.5)")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     return p
+
+
+def add_dist_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    p.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                   help="collectives of a data-parallel run launched by torch.distributed.run: "
+                        "nccl on CUDA and gloo on the CPU by default; gloo on CUDA lets several "
+                        "ranks share one card")
+    return p
+
+
+def start_data_parallel(args, required: bool = False):
+    """(the group of a data-parallel run or None, the device): a run under
+    ``torch.distributed.run`` (``WORLD_SIZE`` > 1, or ``required``) joins
+    its group on ``cuda:{LOCAL_RANK}`` or the CPU; one process runs on
+    ``--device``."""
+    dp = pdist.init_from_env(args.device, getattr(args, "dist_backend", None), required)
+    return dp, (resolve_device(args.device) if dp is None else dp.device)
 
 
 def common_config(args) -> Config:

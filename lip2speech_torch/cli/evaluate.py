@@ -1,7 +1,11 @@
 """Evaluation CLI: the mean ESTOI (or STOI, PESQ) over a test split.
 
 Counterpart of ``lip2speech_tpu/cli/evaluate.py``. Prints one JSON line
-with ``dataset``, ``n_clips`` and the score.
+with ``dataset``, ``n_clips`` and the score. Launched by
+``torch.distributed.run``, each process joins the group
+(``cli.common.start_data_parallel``, ``--dist_backend``) and scores its
+rows of every batch (``eval.evaluate.evaluate_net``); rank 0 prints the
+score over every rank's clips.
 
 Usage: python -m lip2speech_torch.cli.evaluate --dataset LRW --root ... \
          [--model_path ckpt_dir_or.pth] [--device cuda]
@@ -12,15 +16,17 @@ from __future__ import annotations
 import argparse
 import json
 
-from lip2speech_torch.cli.common import add_common_args, common_config, load_model
+from lip2speech_torch.cli.common import (add_common_args, add_dist_args, common_config,
+                                         load_model, start_data_parallel)
 from lip2speech_torch.data import get_dataset
 from lip2speech_torch.eval.evaluate import evaluate_net
-from lip2speech_torch.models.layers import resolve_device
+from lip2speech_torch.parallel import dist as pdist
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("lip2speech_torch evaluate")
     add_common_args(p)
+    add_dist_args(p)
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--max_batches", type=int, default=None)
     p.add_argument("--gl_iters", type=int, default=32, help="Griffin-Lim iterations")
@@ -36,14 +42,18 @@ def parse_args(argv=None):
 def main(argv=None) -> float:
     args = parse_args(argv)
     cfg = common_config(args)
-    device = resolve_device(args.device)
-    ds = get_dataset(args.dataset, args.root, mode="test", cfg=cfg.data)
-    bs = min(args.batch_size, max(len(ds), 1))
-    model, _ = load_model(cfg, args.model_path, device)
-    score = evaluate_net(model, ds, cfg, batch_size=bs, n_gl_iters=args.gl_iters,
-                         max_batches=args.max_batches, seed=args.seed,
-                         device_estoi=args.device_estoi, metric=args.metric)
-    print(json.dumps({"dataset": args.dataset, "n_clips": len(ds), args.metric: score}))
+    dp, device = start_data_parallel(args)
+    try:
+        ds = get_dataset(args.dataset, args.root, mode="test", cfg=cfg.data)
+        bs = min(args.batch_size, max(len(ds), 1))
+        model, _ = load_model(cfg, args.model_path, device)
+        score = evaluate_net(model, ds, cfg, batch_size=bs, n_gl_iters=args.gl_iters,
+                             max_batches=args.max_batches, seed=args.seed,
+                             device_estoi=args.device_estoi, metric=args.metric, dp=dp)
+    finally:
+        pdist.shutdown(dp)
+    if pdist.is_main(dp):
+        print(json.dumps({"dataset": args.dataset, "n_clips": len(ds), args.metric: score}))
     return score
 
 

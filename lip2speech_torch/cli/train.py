@@ -1,9 +1,10 @@
 """Training CLI.
 
-Counterpart of ``lip2speech_tpu/cli/train.py`` on one device: the dataset,
-the AMSGrad train step (``train/train_step.py``), resume from the newest
-checkpoint, the teacher-forcing anneal (+``tf_ratio_step`` every
-``tf_ratio_epochs`` epochs), the eval tick (``eval/evaluate.py``, whose
+Counterpart of ``lip2speech_tpu/cli/train.py``, on one device or one
+process a device (data parallelism, below): the dataset, the AMSGrad train
+step (``train/train_step.py``), resume from the newest checkpoint, the
+teacher-forcing anneal (+``tf_ratio_step`` every ``tf_ratio_epochs``
+epochs), the eval tick (``eval/evaluate.py``, whose
 decode runs through the AR kernel on the card) with a save when the score
 improves, JSONL / console / TensorBoard logging, and the rewind on a stall.
 
@@ -13,13 +14,23 @@ from a generator seeded by ``train.seed + 17``, at the start of every run,
 a resumed one too: it is not checkpointed. The rewind on a stall is
 refused with it, since the safety checkpoints would hold no critic.
 
-Not here yet: ``--multihost``, ``--data_parallel`` and ``--model_parallel``
-(ROADMAP.md, queue 4).
+Data parallelism (``parallel/dist.py``): one process per device, launched
+by ``torch.distributed.run``, whose environment starts the group
+(``--multihost`` requires it). ``--batch_size`` is the global batch; each
+rank reads its rows (the loader's shard), runs the step on them and sums
+the gradients with the others, so every rank holds the same weights.
+``--data_parallel`` must be the world size (-1: every process).
+``--dist_backend`` picks the collectives: NCCL on CUDA and gloo on the CPU
+by default; gloo on CUDA lets several ranks share one card. Only rank 0
+writes checkpoints, logs and the console. Tensor parallelism
+(``--model_parallel`` above 1) is not ported yet: ROADMAP.md, item 15.
 
 The loop reads metrics from the device only at log ticks, and, when
 rewinding is on, the previous step's ``notfinite_count`` each step.
 
 Usage: python -m lip2speech_torch.cli.train --dataset LRW --root ... [--device cuda]
+       python -m torch.distributed.run --nproc_per_node 2 -m lip2speech_torch.cli.train \
+           --dataset LRW --root ... [--device cpu --dist_backend gloo]
 """
 
 from __future__ import annotations
@@ -33,12 +44,13 @@ import time
 import numpy as np
 import torch
 
-from lip2speech_torch.cli.common import add_common_args, common_config, load_model
+from lip2speech_torch.cli.common import (add_common_args, add_dist_args, common_config,
+                                         load_model, start_data_parallel)
 from lip2speech_torch.config import Config, TrainConfig
 from lip2speech_torch.data import FaceAugmentation, Loader, get_dataset
 from lip2speech_torch.data.collate import prepare_batch, to_device
 from lip2speech_torch.eval.evaluate import evaluate_net
-from lip2speech_torch.models.layers import resolve_device
+from lip2speech_torch.parallel import dist as pdist
 from lip2speech_torch.train import checkpoint as ckpt
 from lip2speech_torch.train.adversarial import adversarial_train_step, init_critic
 from lip2speech_torch.train.logging_utils import MetricLogger, profile_steps
@@ -48,10 +60,18 @@ from lip2speech_torch.train.train_step import create_train_state, train_step
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         "lip2speech_torch train",
-        description="Train on one device. Multi-host, data- and model-parallel "
-                    "training (--multihost, --data_parallel, --model_parallel of the "
-                    "JAX CLI) are not ported yet: ROADMAP.md, queue 4.")
+        description="Train on one device, or data-parallel on the processes that "
+                    "torch.distributed.run launches (one per device). Tensor parallelism "
+                    "(--model_parallel above 1) is not ported yet: ROADMAP.md, item 15.")
     add_common_args(p)
+    add_dist_args(p)
+    p.add_argument("--data_parallel", type=int, default=-1,
+                   help="data-parallel size: the world size, or -1 for every process")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel size; only 1 is ported (ROADMAP.md, item 15)")
+    p.add_argument("--multihost", action="store_true",
+                   help="require the environment of torch.distributed.run (a WORLD_SIZE "
+                        "above 1 starts the group without it)")
     p.add_argument("--finetune_model_path", default=None)
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--max_iters", type=int, default=None)
@@ -111,8 +131,9 @@ def _profile_summary(prof, wall_s: float) -> dict:
 def train(args, cfg: Config | None = None) -> dict:
     """Runs the loop; returns ``final_step``, ``best_score``, the step and
     best score it started from, the loader's ``stats``, the ``critic``
-    (adversarial mode, else None) and, with ``--profile_step``, the
-    ``profile`` summary."""
+    (adversarial mode, else None), the ``state`` and, with
+    ``--profile_step``, the ``profile`` summary. A data-parallel run joins
+    its group here and leaves it at the end."""
     cfg = cfg or common_config(args)
     tc = cfg.train
     if args.rewind_on_stall and tc.adversarial:
@@ -122,8 +143,24 @@ def train(args, cfg: Config | None = None) -> dict:
             "--rewind_on_stall is unsupported with train.adversarial=true: "
             "the rolling safety checkpoint does not include the critic "
             "params/optimizer. Disable one of the two.")
-    device = resolve_device(args.device)
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            f"--model_parallel {args.model_parallel}: tensor parallelism is not ported yet "
+            "(ROADMAP.md, item 15); run data-parallel with --model_parallel 1")
     batch_size = args.batch_size or tc.batch_size
+    pdist.data_parallel_size(args.data_parallel, pdist.env_world_size(), batch_size)
+    dp, device = start_data_parallel(args, required=args.multihost)
+    try:
+        return _train(args, cfg, dp, device, batch_size)
+    finally:
+        pdist.shutdown(dp)
+
+
+def _train(args, cfg: Config, dp, device, batch_size: int) -> dict:
+    tc = cfg.train
+    say = print if pdist.is_main(dp) else (lambda *a, **k: None)
+    if dp is not None:
+        say(f"data parallel: {dp.world} ranks over {dp.backend}, global batch {batch_size}")
     max_iters = args.max_iters or tc.max_iters
     eval_interval = args.eval_interval or tc.eval_interval
     log_interval = args.log_interval or tc.log_interval
@@ -143,20 +180,31 @@ def train(args, cfg: Config | None = None) -> dict:
     model, _ = load_model(cfg, args.finetune_model_path or args.model_path, device)
     state = create_train_state(cfg, model)
     start_it, best_score = 0, -1.0
+    pdist.barrier(dp)  # every rank reads the same newest checkpoint
     restored = ckpt.restore_checkpoint(args.ckpt_dir, state)
     if restored is not None:
         _, extra = restored
         start_it = state.step
         best_score = float(extra.get("best_score", -1.0))
-        print(f"resumed at step {start_it} (best ESTOI {best_score:.4f})")
+        say(f"resumed at step {start_it} (best ESTOI {best_score:.4f})")
     result = {"start_step": start_it, "start_best_score": best_score}
     critic = (init_critic(cfg, torch.Generator().manual_seed(tc.seed + 17), device)
               if tc.adversarial else None)
+    if dp is not None:
+        # the same weights, optimizer state, critic and shuffle on every rank
+        held = [*model.state_dict().values(), *state.opt.state_dict().values(),
+                torch.tensor([tc.seed, batch_size, start_it], device=device)]
+        if critic is not None:
+            held += list(critic.disc.state_dict().values())
+        if not pdist.same_on_all_ranks([t for t in held if torch.is_tensor(t)], dp):
+            raise RuntimeError("the ranks start from different weights, state or seeds")
 
-    logger = MetricLogger(args.run_dir)
+    logger = MetricLogger(args.run_dir, enabled=pdist.is_main(dp))
     loader = Loader(ds, batch_size, cfg.data, shuffle=True, infinite=True,
                     num_workers=args.num_workers or min(batch_size, os.cpu_count() or 8),
-                    seed=tc.seed, pin_memory=device.type == "cuda")
+                    seed=tc.seed, pin_memory=device.type == "cuda",
+                    shard_index=0 if dp is None else dp.rank,
+                    shard_count=1 if dp is None else dp.world)
     data_iter = iter(loader)
     staged = None
     it = start_it
@@ -168,8 +216,10 @@ def train(args, cfg: Config | None = None) -> dict:
     stream_seed = tc.seed
     rewinds, rewind_depth, last_rewind_it, last_consec = 0, 0, -1, 0.0
     pending_nfc = None  # the previous step's notfinite_count, on the device
-    if args.rewind_on_stall and not ckpt.available_steps(safety_dir):
-        ckpt.save_checkpoint(safety_dir, max(start_it, 0), state, {"best_score": best_score})
+    first_safety = args.rewind_on_stall and not ckpt.available_steps(safety_dir)
+    pdist.barrier(dp)  # every rank has looked before rank 0 writes
+    if first_safety:
+        ckpt.save_checkpoint(safety_dir, max(start_it, 0), state, {"best_score": best_score}, dp)
 
     def do_rewind():
         nonlocal rewinds, rewind_depth, last_rewind_it, stream_seed
@@ -185,7 +235,7 @@ def train(args, cfg: Config | None = None) -> dict:
             if not left:
                 raise RuntimeError("rewind: no safety checkpoint survives") from e
             target = left[-1]
-            print(f"rewind: requested step missing ({e}); restoring safety step {target}")
+            say(f"rewind: requested step missing ({e}); restoring safety step {target}")
             ckpt.restore_checkpoint(safety_dir, state, step=target)
         rewinds += 1
         rewind_depth += 1
@@ -195,7 +245,7 @@ def train(args, cfg: Config | None = None) -> dict:
         if args.rewind_lr_decay != 1.0:
             state.opt.cfg = dataclasses.replace(
                 state.opt.cfg, learning_rate=state.opt.cfg.learning_rate * args.rewind_lr_decay)
-        print(f"[{it + 1}] REWIND #{rewinds}: {last_consec:.0f} consecutive rejected steps; "
+        say(f"[{it + 1}] REWIND #{rewinds}: {last_consec:.0f} consecutive rejected steps; "
               f"restored safety step {target}, lr {state.opt.cfg.learning_rate:.2e}, new stream")
         logger.scalars(it + 1, {"rewind": float(rewinds), "rewind_target": float(target)})
 
@@ -221,17 +271,17 @@ def train(args, cfg: Config | None = None) -> dict:
                 else:
                     batch = staged
                 if critic is None:
-                    metrics = train_step(state, batch, tf_ratio, cfg, seed=stream_seed)
+                    metrics = train_step(state, batch, tf_ratio, cfg, seed=stream_seed, dp=dp)
                 else:
                     metrics = adversarial_train_step(state, critic, batch, tf_ratio, cfg,
-                                                     seed=stream_seed)
+                                                     seed=stream_seed, dp=dp)
                 if profiling:
                     sync()
                     wall = time.perf_counter() - t0
             if profiling:
                 result["profile"] = _profile_summary(prof, wall)
                 logger.scalars(it + 1, result["profile"], prefix="profile/")
-                print(f"[{it + 1}] profiled step: " + ", ".join(
+                say(f"[{it + 1}] profiled step: " + ", ".join(
                     f"{k} {v:.3f}" for k, v in result["profile"].items()))
 
             if args.rewind_on_stall:
@@ -252,21 +302,23 @@ def train(args, cfg: Config | None = None) -> dict:
 
             if (it + 1) % eval_interval == 0:
                 score = evaluate_net(model, eval_ds, cfg, batch_size=min(32, batch_size),
-                                     max_batches=args.eval_batches)
+                                     max_batches=args.eval_batches, dp=dp)
                 logger.scalars(it + 1, {"estoi": score}, prefix="eval/")
                 logger.histograms(it + 1, model.named_parameters())
-                print(f"[{it + 1}] eval ESTOI {score:.4f} (best {best_score:.4f})")
+                say(f"[{it + 1}] eval ESTOI {score:.4f} (best {best_score:.4f})")
                 if score > best_score:
                     best_score = score
-                    ckpt.save_checkpoint(args.ckpt_dir, it + 1, state, {"best_score": best_score})
+                    ckpt.save_checkpoint(args.ckpt_dir, it + 1, state, {"best_score": best_score},
+                                         dp)
                     last_saved_step = it + 1
                 if args.rewind_on_stall and pending_nfc is not None:
                     last_consec = float(pending_nfc)  # this step's, before the safety save
                     pending_nfc = None
                 if args.rewind_on_stall and last_consec == 0.0:
                     # a safety save only from a step that was taken
-                    ckpt.save_checkpoint(safety_dir, it + 1, state, {"best_score": best_score})
-                    ckpt.prune_checkpoints(safety_dir, keep=5)
+                    ckpt.save_checkpoint(safety_dir, it + 1, state, {"best_score": best_score},
+                                         dp)
+                    ckpt.prune_checkpoints(safety_dir, keep=5, dp=dp)
                     if it - last_rewind_it >= eval_interval:
                         rewind_depth = 0
     finally:
@@ -275,9 +327,9 @@ def train(args, cfg: Config | None = None) -> dict:
 
     # the final save, unless the eval tick just saved this step
     if last_saved_step != max_iters:
-        ckpt.save_checkpoint(args.ckpt_dir, max_iters, state, {"best_score": best_score})
+        ckpt.save_checkpoint(args.ckpt_dir, max_iters, state, {"best_score": best_score}, dp)
     result.update(final_step=it + 1, best_score=best_score, loader=dict(loader.stats),
-                  critic=critic)
+                  critic=critic, state=state)
     return result
 
 

@@ -72,18 +72,27 @@ class Loader:
             self.rng.shuffle(idx)
         return idx
 
-    def _shard(self, chunk: np.ndarray) -> np.ndarray | None:
-        """This process's share of one batch's indices; None when a ragged
-        tail leaves some process nothing, which every process then skips."""
-        if len(chunk) == self.batch_size:
+    def shard_rows(self, n: int) -> tuple[int, int] | None:
+        """[start, stop) of this process's rows of a batch of ``n`` clips:
+        its equal share of a full batch, its part of a ragged tail split as
+        evenly as the counts allow; None when the tail leaves some process
+        nothing, which every process then skips."""
+        if n == self.batch_size:
             lo = self.shard_index * self.local_batch_size
-            return chunk[lo: lo + self.local_batch_size]
-        edges = np.linspace(0, len(chunk), self.shard_count + 1).round().astype(int)
+            return lo, lo + self.local_batch_size
+        edges = np.linspace(0, n, self.shard_count + 1).round().astype(int)
         if (np.diff(edges) == 0).any():
+            return None
+        return int(edges[self.shard_index]), int(edges[self.shard_index + 1])
+
+    def _shard(self, chunk: np.ndarray) -> np.ndarray | None:
+        """This process's share of one batch's indices (``shard_rows``)."""
+        rows = self.shard_rows(len(chunk))
+        if rows is None:
             logging.getLogger(__name__).warning(
                 "skipping %d-clip tail batch (< %d processes)", len(chunk), self.shard_count)
             return None
-        return chunk[edges[self.shard_index]: edges[self.shard_index + 1]]
+        return chunk[rows[0]: rows[1]]
 
     def _batch(self, pool: ThreadPoolExecutor, chunk: np.ndarray) -> dict:
         t0 = time.perf_counter()

@@ -1,9 +1,9 @@
 """Evaluation: batched forward -> Griffin-Lim inversion -> mean ESTOI.
 
-Counterpart of ``lip2speech_tpu/eval/evaluate.py`` (single process). The
-forward runs in eval mode with the ground-truth mels and ``tf_ratio=1``,
-which no teacher frame passes, so the decoder runs free for the mels'
-length: ``Decoder.forward`` sends it through ``kernels.ar_decode``, the
+Counterpart of ``lip2speech_tpu/eval/evaluate.py``, on one process or,
+under data parallelism, on each rank's shard of the clips. The forward
+runs in eval mode with the ground-truth mels and ``tf_ratio=1``, which no
+teacher frame passes, so the decoder runs free for the mels' length: ``Decoder.forward`` sends it through ``kernels.ar_decode``, the
 CUDA kernel for tensors on the card. The postnet output is inverted (NNLS,
 then Griffin-Lim) and scored per clip against the ground-truth waveform,
 on the host in float64 (``ops.estoi.estoi``) or, with ``device_estoi``, on
@@ -13,6 +13,14 @@ Random draws: the content codebook's gumbel noise comes from a generator
 seeded by ``seed``, the same for every batch as in the JAX package; each
 batch's Griffin-Lim phase from a generator seeded by (seed, batch index),
 unless the caller hands the phases in (``thetas``).
+
+Several processes (``dp``, JAX's ``evaluate.py:113-205``): when the batch
+divides among the ranks, each rank reads its rows of every batch (the
+loader's shard), pads its part of a ragged tail with its row 0, and scores
+its real rows; else every rank reads every batch. The draws of a rank's
+rows are the rows of the global batch's draws (``parallel.RowDraws``), and
+the score is the sum of every rank's scores over their count, the same on
+every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from lip2speech_torch.data.collate import prepare_batch, to_device
 from lip2speech_torch.data.loader import Loader
 from lip2speech_torch.ops import estoi as estoi_ops
 from lip2speech_torch.ops.griffin_lim import mel_to_audio
+from lip2speech_torch.parallel.dist import DataParallel, RowDraws, all_reduce_
 from lip2speech_torch.train.train_step import cast_floats, step_generator
 
 
@@ -55,11 +64,16 @@ class EvalProgram:
         return cast_floats({k: v.detach() for k, v in state.items()}, torch.bfloat16)
 
     @torch.no_grad()
-    def forward(self, batch: dict, weights: dict | None, seed: int) -> dict:
+    def forward(self, batch: dict, weights: dict | None, seed: int,
+                rows: tuple[int, int] | None = None) -> dict:
         """The model's eval-mode forward on a prepared batch; the outputs
-        as the model gives them, ``mel_postnet`` (B, n_mels, M) among them."""
+        as the model gives them, ``mel_postnet`` (B, n_mels, M) among them.
+        ``rows`` = (start, total): the batch is rows ``[start, start + B)``
+        of a global batch of ``total``, whose draws it takes."""
         model = self.model
         gen = torch.Generator(device=batch["mel"].device).manual_seed(seed)
+        if rows is not None:
+            gen = RowDraws(gen, rows[0], batch["mel"].shape[0], rows[1])
         inputs = {k: batch[k] for k in ("video", "faces", "mel")}
         if weights is not None:
             inputs = cast_floats(inputs, torch.bfloat16)
@@ -73,8 +87,7 @@ class EvalProgram:
         finally:
             model.train(was_training)
 
-    def invert(self, mel: torch.Tensor, theta: torch.Tensor | None,
-               generator: torch.Generator | None) -> torch.Tensor:
+    def invert(self, mel: torch.Tensor, theta: torch.Tensor | None, generator) -> torch.Tensor:
         """(B, n_mels, M) log-mel -> (B, (M - 1) * hop) waveform, f32."""
         return mel_to_audio(mel.float(), self.cfg.audio, n_iter=self.n_gl_iters,
                             generator=generator, theta=theta)
@@ -99,15 +112,17 @@ def _pad_rows(v, reps: int):
 def evaluate_net(model: torch.nn.Module, dataset, cfg: Config, batch_size: int = 32,
                  n_gl_iters: int = 32, max_batches: int | None = None, seed: int = 0,
                  device_estoi: bool = False, metric: str = "estoi", thetas=None,
-                 stats: dict | None = None) -> float:
+                 stats: dict | None = None, dp: DataParallel | None = None) -> float:
     """Mean ESTOI (or STOI, or PESQ on the host) of ``model`` over
     ``dataset``, on the model's device. A ragged last batch is padded by
     repeating its row 0 and scored on its real rows. ``thetas[i]`` is
-    batch i's initial Griffin-Lim phase (B, n_freqs, M). With ``stats``, the
-    device is synchronised after each stage and ``stats`` gets
-    ``prepare_s`` (waiting for the loader, the copy to the device and
-    ``prepare_batch``), ``forward_s``, ``griffin_lim_s``, ``metric_s`` (wall
-    seconds of each batch), ``batches`` and the per-clip ``scores``."""
+    batch i's initial Griffin-Lim phase (B, n_freqs, M), B the global
+    batch. With ``stats``, the device is synchronised after each stage and
+    ``stats`` gets ``prepare_s`` (waiting for the loader, the copy to the
+    device and ``prepare_batch``), ``forward_s``, ``griffin_lim_s``,
+    ``metric_s`` (wall seconds of each batch), ``batches`` and this rank's
+    per-clip ``scores``. Under ``dp`` every rank calls it and gets the mean
+    over every rank's clips (the module docstring)."""
     assert metric in ("estoi", "stoi", "pesq"), metric
     from lip2speech_torch.eval.metrics import get_waveform_metric
 
@@ -117,8 +132,12 @@ def evaluate_net(model: torch.nn.Module, dataset, cfg: Config, batch_size: int =
     dev = next(model.parameters()).device
     program = eval_program(model, cfg, n_gl_iters, "stoi" if metric == "stoi" else "estoi")
     weights = program.weights()
+    # JAX's rule: shard the loader only when the batch splits evenly
+    shard = dp is not None and batch_size % dp.world == 0
     loader = Loader(dataset, batch_size, cfg.data, shuffle=False, drop_last=False,
-                    num_workers=min(8, os.cpu_count() or 8), pin_memory=dev.type == "cuda")
+                    num_workers=min(8, os.cpu_count() or 8), pin_memory=dev.type == "cuda",
+                    shard_index=dp.rank if shard else 0, shard_count=dp.world if shard else 1)
+    local_batch = loader.local_batch_size
     clock = {"prepare_s": [], "forward_s": [], "griffin_lim_s": [], "metric_s": []}
     t = [time.perf_counter()]
 
@@ -137,14 +156,19 @@ def evaluate_net(model: torch.nn.Module, dataset, cfg: Config, batch_size: int =
         if max_batches is not None and bi >= max_batches:
             break
         n_valid = raw["mouth_u8"].shape[0]
-        if n_valid < batch_size:
-            raw = {k: _pad_rows(v, batch_size - n_valid) for k, v in raw.items()}
+        if n_valid < local_batch:
+            raw = {k: _pad_rows(v, local_batch - n_valid) for k, v in raw.items()}
+        # where this rank's rows sit in the global batch, for its draws
+        start = loader.shard_rows(min(batch_size, len(dataset) - bi * batch_size))[0]
+        rows = (start, batch_size) if shard else None
         batch = prepare_batch(to_device(raw, dev), cfg.audio, cfg.data)
         lap("prepare_s")
-        mel = program.forward(batch, weights, seed)["mel_postnet"]
+        mel = program.forward(batch, weights, seed, rows)["mel_postnet"]
         lap("forward_s")
-        theta = None if thetas is None else thetas[bi].to(dev)
-        wav = program.invert(mel, theta, step_generator(seed, bi, dev))
+        theta = None if thetas is None else thetas[bi][start: start + local_batch].to(dev)
+        gen = step_generator(seed, bi, dev)
+        wav = program.invert(mel, theta, gen if rows is None else RowDraws(gen, start, local_batch,
+                                                                          batch_size))
         lap("griffin_lim_s")
         if device_estoi:
             scores.extend(program.score(batch["audio"], wav, batch["audio_lengths"])
@@ -160,4 +184,10 @@ def evaluate_net(model: torch.nn.Module, dataset, cfg: Config, batch_size: int =
         n_batches += 1
     if stats is not None:
         stats.update(clock, batches=n_batches, scores=list(scores))
+    if dp is not None:
+        # JAX's process_allgather of (sum, count), summed
+        totals = torch.tensor([float(np.sum(scores)), float(len(scores))], dtype=torch.float64,
+                              device=dp.device)
+        total, count = all_reduce_(totals, dp).tolist()
+        return total / max(count, 1.0)
     return float(np.mean(scores)) if scores else 0.0

@@ -39,6 +39,7 @@ from lip2speech_torch.models.layers import (
     ConvNorm,
     LinearNorm,
     PSine,
+    RankAware,
     at_least_f32,
     clip_grad_norm,
     dropout,
@@ -46,6 +47,7 @@ from lip2speech_torch.models.layers import (
     lstm_cell_step,
     sinusoid_table,
 )
+from lip2speech_torch.parallel.dist import uniform
 
 
 @functools.lru_cache(maxsize=64)
@@ -61,9 +63,9 @@ def adaptive_avg_pool_matrix(in_len: int, out_len: int) -> np.ndarray:
     return m
 
 
-def gumbel_noise(shape, generator: torch.Generator | None, device) -> torch.Tensor:
-    """-log(-log(U)) in f32."""
-    u = torch.rand(shape, generator=generator, device=device)
+def gumbel_noise(shape, generator, device) -> torch.Tensor:
+    """-log(-log(U)) in f32, ``shape[0]`` the batch axis."""
+    u = uniform(shape, generator, device)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 
@@ -98,7 +100,7 @@ class MultiHopConv(nn.Module):
         return self.bottleneck(torch.cat([x] + [F.silu(m(x)) for m in self.conv], dim=1))
 
 
-class ContentEncoder(nn.Module):
+class ContentEncoder(RankAware, nn.Module):
     """Multi-scale aggregation + gumbel codebook (decoder.py:152-222).
     Also holds the AR loop's content query ``Q`` and ``temperature``."""
 
@@ -148,7 +150,7 @@ class ContentEncoder(nn.Module):
         key = self.K(w)
         flat = self.location_fc(w).reshape(-1, self.word_embeddings.shape[0])
         if self.grad_clip > 0.0:
-            flat = clip_grad_norm(flat, self.grad_clip)
+            flat = clip_grad_norm(flat, self.grad_clip, self.dp)
         if gumbel is None:
             gumbel = gumbel_noise(flat.shape, generator, flat.device)
         z = torch.softmax((flat + gumbel.to(flat.dtype)) / self.tau, dim=-1)
@@ -183,7 +185,7 @@ class Postnet(nn.Module):
         return drop(self.convolutions[-1](x), len(self.convolutions) - 1)
 
 
-class Decoder(nn.Module):
+class Decoder(RankAware, nn.Module):
     """Encoder features (B, T, E) + face embedding (B, 256) -> mels, gate
     logits, attention, lengths; free-running or teacher-forced."""
 
@@ -343,10 +345,10 @@ class Decoder(nn.Module):
                 return None
             if name in draws:
                 return draws[name].to(dev)
-            return keep_mask(shape, rate, generator, dev)
+            return keep_mask(shape, rate, generator, dev, batch_dim=1)
 
         rand = draws.get("teacher")
-        rand = torch.rand(M, generator=generator, device=dev) if rand is None else rand.to(dev)
+        rand = uniform(M, generator, dev, batch_dim=None) if rand is None else rand.to(dev)
         use_teacher = teacher_schedule(rand, tf_ratio)
         prenet_keep = draw("prenet", (M, B, Fh // 2), cfg.prenet_dropout)
         attention_keep = draw("attention", (M, B, T), cfg.attention_dropout)
@@ -384,9 +386,9 @@ class Decoder(nn.Module):
         mel_frames, stops, attns = [], [], []
         for i in range(M):
             if cfg.scan_grad_clip > 0.0:
-                h = clip_grad_norm(h, cfg.scan_grad_clip)
-                c = clip_grad_norm(c, cfg.scan_grad_clip)
-                ys = clip_grad_norm(ys, cfg.scan_grad_clip)
+                h = clip_grad_norm(h, cfg.scan_grad_clip, self.dp)
+                c = clip_grad_norm(c, cfg.scan_grad_clip, self.dp)
+                ys = clip_grad_norm(ys, cfg.scan_grad_clip, self.dp)
             ys_in = torch.where(use_teacher[i], teacher[i], ys)
             pre = self.prenet[1](self.prenet[0](ys_in))
             if prenet_keep is not None:

@@ -14,12 +14,15 @@ below, which trains by flax's rule.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from lip2speech_torch.parallel.dist import DataParallel, all_reduce_, all_reduce_sum, uniform
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -29,23 +32,25 @@ def at_least_f32(x: torch.Tensor) -> torch.Tensor:
 
 class _ClipGradNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, limit):
-        ctx.limit = limit
+    def forward(ctx, x, limit, dp):
+        ctx.limit, ctx.dp = limit, dp
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        norm = torch.sqrt(torch.sum(torch.square(at_least_f32(g))))
+        sq = torch.sum(torch.square(at_least_f32(g)))
+        norm = torch.sqrt(all_reduce_(sq.reshape(1), ctx.dp)[0])
         scale = torch.where(torch.isfinite(norm) & (norm > ctx.limit), ctx.limit / norm, 1.0)
-        return g * scale.to(g.dtype), None
+        return g * scale.to(g.dtype), None, None
 
 
-def clip_grad_norm(x: torch.Tensor, limit: float) -> torch.Tensor:
+def clip_grad_norm(x: torch.Tensor, limit: float, dp: DataParallel | None = None) -> torch.Tensor:
     """Identity whose backward rescales the cotangent to ``limit`` L2 norm
     over the whole tensor (``layers.py:23-55``): the norm is taken in (at
     least) f32, and a non-finite norm passes the cotangent through
-    unscaled."""
-    return _ClipGradNorm.apply(x, limit)
+    unscaled. Under data parallelism (``dp``) the tensor is every rank's
+    rows, and the norm is taken over all of them."""
+    return _ClipGradNorm.apply(x, limit, dp)
 
 
 def dropout(x: torch.Tensor, keep_mask: torch.Tensor, rate: float) -> torch.Tensor:
@@ -55,12 +60,39 @@ def dropout(x: torch.Tensor, keep_mask: torch.Tensor, rate: float) -> torch.Tens
     return torch.where(keep_mask, x / (1.0 - rate), 0.0)
 
 
-def keep_mask(shape, rate: float, generator: torch.Generator | None, device) -> torch.Tensor:
-    """Bernoulli(1 - rate) keep mask drawn from ``generator``."""
-    return torch.rand(shape, generator=generator, device=device) < (1.0 - rate)
+def keep_mask(shape, rate: float, generator, device, batch_dim: int = 0) -> torch.Tensor:
+    """Bernoulli(1 - rate) keep mask drawn from ``generator`` (a
+    ``torch.Generator``, or a rank's ``parallel.RowDraws``, which draws at
+    the global batch along ``batch_dim`` and keeps its rows)."""
+    return uniform(shape, generator, device, batch_dim) < (1.0 - rate)
 
 
-class FlaxRuleBatchNorm:
+class RankAware:
+    """A module whose train-mode computation reads the whole batch. Under
+    data parallelism ``data_parallel`` sets its ``dp`` for a step, and it
+    reduces over the ranks; ``dp`` is None otherwise."""
+
+    dp: DataParallel | None = None
+
+
+@contextlib.contextmanager
+def data_parallel(module: nn.Module, dp: DataParallel | None):
+    """Set ``dp`` on every ``RankAware`` submodule of ``module`` for the
+    block (nothing when ``dp`` is None)."""
+    if dp is None:
+        yield
+        return
+    aware = [m for m in module.modules() if isinstance(m, RankAware)]
+    for m in aware:
+        m.dp = dp
+    try:
+        yield
+    finally:
+        for m in aware:
+            m.dp = None
+
+
+class FlaxRuleBatchNorm(RankAware):
     """BatchNorm that trains as flax ``nn.BatchNorm(momentum=0.9)`` does
     (``layers.py:271-276``).
 
@@ -73,7 +105,11 @@ class FlaxRuleBatchNorm:
     ``new_stats`` (f32, or f64 for an f64 input) for the caller, as flax
     returns them as mutable state, so a train step can keep the old ones
     when it skips the update. Eval mode is ``F.batch_norm`` on the running
-    statistics. State-dict keys are those of ``nn.BatchNorm*d``."""
+    statistics. State-dict keys are those of ``nn.BatchNorm*d``.
+
+    Under data parallelism (``dp``, set by ``data_parallel``) the moments
+    and the new statistics cover the global batch: each rank's (sum x,
+    sum x^2, count) is summed over the ranks, with its gradient."""
 
     new_stats: tuple[torch.Tensor, torch.Tensor] | None = None
 
@@ -84,8 +120,14 @@ class FlaxRuleBatchNorm:
         dims = [0] + list(range(2, x.ndim))
         shape = [1, -1] + [1] * (x.ndim - 2)
         xf = at_least_f32(x)
-        mean = xf.mean(dims)
-        var = torch.clamp(torch.square(xf).mean(dims) - torch.square(mean), min=0.0)
+        if self.dp is None:
+            mean, mean_sq = xf.mean(dims), torch.square(xf).mean(dims)
+        else:
+            sums = all_reduce_sum(torch.cat([xf.sum(dims), torch.square(xf).sum(dims),
+                                             xf.new_full((1,), xf.numel() // xf.shape[1])]), self.dp)
+            C = xf.shape[1]
+            mean, mean_sq = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
+        var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.new_stats = (self.running_mean.to(xf.dtype) * (1 - m) + mean * m,

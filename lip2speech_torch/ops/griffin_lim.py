@@ -17,6 +17,7 @@ import torch
 from lip2speech_torch.config import AudioConfig
 from lip2speech_torch.ops import mel as mel_ops
 from lip2speech_torch.ops import stft as stft_ops
+from lip2speech_torch.parallel.dist import uniform
 
 
 def griffin_lim(specgram: torch.Tensor, cfg: AudioConfig = AudioConfig(),
@@ -29,8 +30,7 @@ def griffin_lim(specgram: torch.Tensor, cfg: AudioConfig = AudioConfig(),
     window = stft_ops.hann_window(cfg.win_length, magnitude.device)
 
     if theta is None and rand_init:
-        theta = torch.rand(magnitude.shape, generator=generator,
-                           device=magnitude.device) * (2 * math.pi) - math.pi
+        theta = uniform(magnitude.shape, generator, magnitude.device) * (2 * math.pi) - math.pi
     if theta is not None:
         ang_re, ang_im = torch.cos(theta), torch.sin(theta)
     else:

@@ -24,6 +24,14 @@ the step's, as JAX replaces its ``batch_stats``. Every random draw is an
 input (``draws``): ``use_face`` (0-d bool), ``face`` the face net's keep
 mask (B, 1792) and ``decoder`` the decoder's (B, 12800); the ones not
 given come from a generator seeded by (seed, step).
+
+Under data parallelism (``dp``, ``parallel/dist.py``) each rank runs the
+step on its rows of the global batch: the keep masks are drawn at the
+global shape and cut to its rows (``use_face`` is one draw for all); the
+BatchNorm moments cover the global batch; the contrastive loss is formed on
+the embeddings of every rank (``all_gather_rows``), as JAX forms it over
+the global batch; each loss is the rank's share; and the three groups'
+gradients are summed over the ranks in one vector, in their own type.
 """
 
 from __future__ import annotations
@@ -36,14 +44,16 @@ from torch import nn
 
 from lip2speech_torch.config import Config
 from lip2speech_torch.models.face import DROPOUT_RATE, FaceRecognizer
-from lip2speech_torch.models.layers import keep_mask
+from lip2speech_torch.models.layers import data_parallel, keep_mask
 from lip2speech_torch.models.lip2speech import init_random_
 from lip2speech_torch.models.speaker import SpeakerEncoder
 from lip2speech_torch.ops.image import normalize_face
+from lip2speech_torch.parallel.dist import DataParallel, all_gather_rows, all_reduce_, uniform
 from lip2speech_torch.speaker.losses import contrastive_loss, reconstruction_loss
 from lip2speech_torch.speaker.models import (DECODER_DROPOUT, SEED_CHANNELS, SEED_RES,
                                              FaceDecoder)
-from lip2speech_torch.train.train_step import batch_norms, step_generator
+from lip2speech_torch.train.losses import global_losses, share
+from lip2speech_torch.train.train_step import batch_norms, step_draws
 
 FACE_CLIP, FACE_DECAY, FACE_MOMENTUM, FACE_LR = 10.0, 1e-5, 0.9, 1e-3
 ADAM_LR, B1, B2, EPS = 1e-3, 0.9, 0.999, 1e-8
@@ -77,6 +87,9 @@ def init_speaker_training(cfg: Config, generator: torch.Generator) -> SpeakerTra
 
 
 def _flat(tensors) -> torch.Tensor:
+    """A list of tensors as one f32 vector (a vector as it is)."""
+    if torch.is_tensor(tensors):
+        return tensors
     return torch.cat([t.reshape(-1).float() for t in tensors])
 
 
@@ -156,8 +169,9 @@ class SpeakerOptimizer:
     @torch.no_grad()
     def step(self, grads: dict) -> torch.Tensor:
         """One update from the gradients of each group (lists in the
-        groups' order), in place; ``t`` is clamped at 100 after it. Returns
-        the face gradients' global norm before the clip."""
+        groups' order, or flat vectors), in place; ``t`` is clamped at 100
+        after it. Returns the face gradients' global norm before the
+        clip."""
         g_face = _flat(grads["face"])
         norm = torch.sqrt(torch.sum(g_face * g_face))
         _add_(self.face.params, self.face.update(g_face, norm))
@@ -190,22 +204,26 @@ def create_speaker_state(model: SpeakerTraining, steps_per_epoch: int) -> Speake
     return SpeakerTrainState(model=model, opt=SpeakerOptimizer(model, steps_per_epoch))
 
 
-def speaker_draws(batch_size: int, generator: torch.Generator, device) -> dict:
-    """The step's random draws from ``generator``: ``use_face`` (p=0.5) and
-    the keep masks of the face net and the decoder."""
+def speaker_draws(batch_size: int, generator, device) -> dict:
+    """The step's random draws from ``generator`` (a ``torch.Generator`` or
+    a rank's ``RowDraws``): ``use_face`` (p=0.5) and the keep masks of the
+    face net and the decoder."""
     return {
-        "use_face": torch.rand((), generator=generator, device=device) < 0.5,
+        "use_face": uniform((), generator, device, batch_dim=None) < 0.5,
         "face": keep_mask((batch_size, 1792), DROPOUT_RATE, generator, device),
         "decoder": keep_mask((batch_size, SEED_RES * SEED_RES * SEED_CHANNELS), DECODER_DROPOUT,
                              generator, device),
     }
 
 
-def speaker_loss_and_grad(model: SpeakerTraining, batch: dict, draws: dict):
+def speaker_loss_and_grad(model: SpeakerTraining, batch: dict, draws: dict,
+                          dp: DataParallel | None = None):
     """The train-mode forward, the losses and their gradients. ``batch``
     holds ``speech`` (B, S) and ``faces_u8`` (B, H, W, 3). Returns (losses
     by name, the new BatchNorm statistics by buffer name, the gradients of
-    each group as lists). Runs in the model's dtype."""
+    each group as lists). Runs in the model's dtype. Under ``dp`` the batch
+    is this rank's rows, the losses and statistics are the global batch's
+    and the gradients this rank's share."""
     faces = normalize_face(batch["faces_u8"]).to(model.t.dtype)
     with torch.no_grad():
         speech_emb = model.speaker(batch["speech"].to(model.t.dtype))
@@ -213,17 +231,21 @@ def speaker_loss_and_grad(model: SpeakerTraining, batch: dict, draws: dict):
     was_training = model.training
     model.train()
     try:
-        face_emb = model.face(faces.permute(0, 3, 1, 2), draws["face"])
-        dec_in = torch.where(draws["use_face"], face_emb.detach(), speech_emb)
-        recon = model.decoder(dec_in, draws["decoder"])
+        with data_parallel(model, dp):
+            face_emb = model.face(faces.permute(0, 3, 1, 2), draws["face"])
+            dec_in = torch.where(draws["use_face"], face_emb.detach(), speech_emb)
+            recon = model.decoder(dec_in, draws["decoder"])
     finally:
         model.train(was_training)
     new_stats = {}
     for name, m in norms.items():
         new_stats[f"{name}.running_mean"], new_stats[f"{name}.running_var"] = m.new_stats
         m.new_stats = None
-    losses = contrastive_loss(speech_emb, face_emb, model.t)
-    losses.update(reconstruction_loss(recon, faces))
+    # the global batch's contrastive loss, taken on every rank: its share
+    losses = contrastive_loss(all_gather_rows(speech_emb, dp), all_gather_rows(face_emb, dp),
+                              model.t)
+    losses = {k: share(v, dp) for k, v in losses.items()}
+    losses["rec_loss"] = share(reconstruction_loss(recon, faces)["rec_loss"], dp)
     losses["loss"] = losses["c_loss"] + losses["l2_loss"] + losses["rec_loss"]
     params = [p for name in GROUPS for p in model.group(name)]
     flat = torch.autograd.grad(losses["loss"], params, allow_unused=True)
@@ -232,22 +254,31 @@ def speaker_loss_and_grad(model: SpeakerTraining, batch: dict, draws: dict):
     for name in GROUPS:
         n = len(model.group(name))
         grads[name], i = flat[i: i + n], i + n
-    return {k: v.detach() for k, v in losses.items()}, new_stats, grads
+    return global_losses(losses, dp), new_stats, grads
+
+
+def reduce_group_grads(grads: dict, dp: DataParallel | None) -> dict[str, torch.Tensor]:
+    """Each group's gradients as one f32 vector; under ``dp`` summed over
+    the ranks in their own type, the three groups in one collective."""
+    sizes = [sum(g.numel() for g in grads[name]) for name in GROUPS]
+    summed = all_reduce_(torch.cat([g.reshape(-1) for name in GROUPS for g in grads[name]]), dp)
+    return dict(zip(GROUPS, summed.float().split(sizes)))
 
 
 def speaker_train_step(state: SpeakerTrainState, batch: dict, draws: dict | None = None,
-                       seed: int = 0) -> dict[str, torch.Tensor]:
-    """One step in place on ``state``. Returns the metrics as 0-d tensors on
-    the device: the losses, ``grad_norm`` (the face gradients' norm before
-    the clip) and the new ``t``."""
+                       seed: int = 0, dp: DataParallel | None = None) -> dict[str, torch.Tensor]:
+    """One step in place on ``state``; under ``dp`` ``batch`` (and each
+    given draw) is this rank's rows of the global batch. Returns the
+    metrics as 0-d tensors on the device: the losses, ``grad_norm`` (the
+    face gradients' norm before the clip) and the new ``t``."""
     model = state.model
     dev = model.t.device
     draws = dict(draws or {})
-    for k, v in speaker_draws(batch["speech"].shape[0],
-                              step_generator(seed, state.step, dev), dev).items():
+    B = batch["speech"].shape[0]
+    for k, v in speaker_draws(B, step_draws(seed, state.step, dev, dp, B), dev).items():
         draws.setdefault(k, v)
-    losses, new_stats, grads = speaker_loss_and_grad(model, batch, draws)
-    grad_norm = state.opt.step(grads)
+    losses, new_stats, grads = speaker_loss_and_grad(model, batch, draws, dp)
+    grad_norm = state.opt.step(reduce_group_grads(grads, dp))
     buffers = dict(model.named_buffers())
     with torch.no_grad():
         for name, value in new_stats.items():

@@ -32,6 +32,12 @@ the critic for good (clamping NaN keeps it NaN).
 Random draws: the step's two patches are inputs (``draws["patch_g"]``,
 ``draws["patch_d"]``) or come from the step's generator, seeded by
 (seed, step) as in the plain step.
+
+Under data parallelism (``dp``) the critic is replicated as the generator
+is: its train-mode BatchNorm moments cover the global batch, its losses are
+the rank's shares, and its flat gradient vector is summed over the ranks
+before RMSprop reads it; the patches have no batch axis and are the same on
+every rank.
 """
 
 from __future__ import annotations
@@ -44,11 +50,12 @@ from torch.profiler import record_function
 
 from lip2speech_torch.config import Config
 from lip2speech_torch.models.discriminator import Discriminator, sample_patch
-from lip2speech_torch.models.layers import FlaxRuleBatchNorm
+from lip2speech_torch.models.layers import FlaxRuleBatchNorm, data_parallel
 from lip2speech_torch.models.lip2speech import init_random_
-from lip2speech_torch.train.losses import discriminator_loss, generator_loss
+from lip2speech_torch.parallel.dist import DataParallel, all_reduce_, base_generator
+from lip2speech_torch.train.losses import discriminator_loss, generator_loss, global_losses
 from lip2speech_torch.train.train_step import (TrainState, apply_update, backward,
-                                               forward_losses, step_generator)
+                                               forward_losses, step_draws)
 
 RMS_DECAY, RMS_EPS = 0.9, 1e-8
 CRITIC_CLIP = 0.01
@@ -63,8 +70,10 @@ class RMSprop:
         self.params = list(params)
         self.nu = torch.zeros(sum(p.numel() for p in self.params), device=self.params[0].device)
 
-    def flatten(self, tensors) -> torch.Tensor:
-        return torch.cat([t.reshape(-1).float() for t in tensors])
+    def flatten(self, tensors, dtype=torch.float32) -> torch.Tensor:
+        """``tensors`` as one vector of ``dtype`` (None: their own)."""
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        return flat if dtype is None else flat.to(dtype)
 
     def update(self, g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(the update, the new nu) from the flat gradient ``g``; writes
@@ -99,23 +108,26 @@ def _mode(module: torch.nn.Module, train: bool):
 
 
 def critic_step(critic: CriticState, real_mel: torch.Tensor, fake_mel: torch.Tensor,
-                speaker: torch.Tensor, patch) -> torch.Tensor:
+                speaker: torch.Tensor, patch, dp: DataParallel | None = None) -> torch.Tensor:
     """One WGAN critic update and clamp, in place on ``critic``, on one
     ``patch`` (start, length) of the real and the fake mel. Both passes run
     in train mode from the same running statistics; the new statistics are
-    the real pass's. Returns ``d_loss`` (0-d, on the device)."""
+    the real pass's. Under ``dp`` the mels are this rank's rows. Returns
+    ``d_loss`` (0-d, on the device; the global batch's)."""
     disc = critic.disc
     fake_mel, speaker = fake_mel.detach(), speaker.detach()
     params = critic.opt.params
     norms = [m for m in disc.modules() if isinstance(m, FlaxRuleBatchNorm)]
-    with record_function("adversarial.critic"), _mode(disc, True):
+    with record_function("adversarial.critic"), _mode(disc, True), data_parallel(disc, dp):
         real_pred = disc(real_mel.detach(), speaker, patch)
         new_stats = [m.new_stats for m in norms]  # the real pass's
         fake_pred = disc(fake_mel, speaker, patch)
-        d_loss = discriminator_loss(real_pred, fake_pred)
+        d_loss = discriminator_loss(real_pred, fake_pred, dp)
         grads = torch.autograd.grad(d_loss, params)
         with torch.no_grad():
-            g = critic.opt.flatten(grads)
+            # summed over the ranks in the gradients' own type
+            g = all_reduce_(critic.opt.flatten(grads, dtype=None), dp).float()
+            d_loss = global_losses({"d": d_loss}, dp)["d"]
             ok = torch.isfinite(d_loss) & torch.isfinite(torch.sqrt(torch.sum(g * g)))
             u, nu = critic.opt.update(g)
             p = critic.opt.flatten(params)
@@ -127,45 +139,48 @@ def critic_step(critic: CriticState, real_mel: torch.Tensor, fake_mel: torch.Ten
                 m.running_mean.copy_(torch.where(ok, mean, m.running_mean))
                 m.running_var.copy_(torch.where(ok, var, m.running_var))
                 m.new_stats = None
-    return d_loss.detach()
+    return d_loss
 
 
 def generator_terms(critic: CriticState, real_mel: torch.Tensor, fake_mel: torch.Tensor,
-                    speaker: torch.Tensor, patch) -> dict[str, torch.Tensor]:
+                    speaker: torch.Tensor, patch, dp: DataParallel | None = None
+                    ) -> dict[str, torch.Tensor]:
     """``g_loss`` and ``g_d_fm_loss`` of the critic in eval mode on one
     ``patch`` of the real mel (no gradient) and the fake one (gradient
-    through ``fake_mel``)."""
+    through ``fake_mel``); this rank's shares under ``dp``."""
     disc = critic.disc
     with record_function("adversarial.generator_terms"), _mode(disc, False):
         with torch.no_grad():
             _, real_feats = disc(real_mel, speaker, patch, return_features=True)
         fake_pred, fake_feats = disc(fake_mel, speaker, patch, return_features=True)
-    return generator_loss(fake_pred, fake_feats, real_feats)
+    return generator_loss(fake_pred, fake_feats, real_feats, dp=dp)
 
 
 def adversarial_train_step(state: TrainState, critic: CriticState, batch: dict, tf_ratio,
                            cfg: Config, draws: dict | None = None,
-                           seed: int | None = None) -> dict[str, torch.Tensor]:
+                           seed: int | None = None,
+                           dp: DataParallel | None = None) -> dict[str, torch.Tensor]:
     """One combined generator + critic step, in place on ``state`` and
     ``critic`` (see the module docstring). Draws absent from ``draws``
     (the model's, ``patch_g`` and ``patch_d``) come from
-    ``step_generator(seed, state.step)``. Returns the plain step's metrics
-    and ``g_loss``, ``g_d_fm_loss`` and ``d_loss``, 0-d tensors on the
-    device; nothing waits for the device."""
+    ``step_generator(seed, state.step)``; under ``dp`` ``batch`` is this
+    rank's rows. Returns the plain step's metrics and ``g_loss``,
+    ``g_d_fm_loss`` and ``d_loss``, 0-d tensors on the device (the global
+    batch's); nothing waits for the device."""
     draws = dict(draws or {})
     seed = cfg.train.seed if seed is None else seed
     mel = batch["mel"]
-    gen = step_generator(seed, state.step, mel.device)
+    gen = step_draws(seed, state.step, mel.device, dp, mel.shape[0])
     P = cfg.model.discriminator_patch
     for name in ("patch_g", "patch_d"):
         if name not in draws:
-            draws[name] = sample_patch(mel.shape[-1], P, gen, mel.device)
-    outputs, losses, new_stats = forward_losses(state, batch, tf_ratio, cfg, draws, gen)
+            draws[name] = sample_patch(mel.shape[-1], P, base_generator(gen), mel.device)
+    outputs, losses, new_stats = forward_losses(state, batch, tf_ratio, cfg, draws, gen, dp)
     fake, spk = outputs["mel_postnet"], outputs["speaker_embedding"]
-    adv = generator_terms(critic, mel, fake, spk, draws["patch_g"])
+    adv = generator_terms(critic, mel, fake, spk, draws["patch_g"], dp)
     losses.update(adv)
     losses["total"] = losses["total"] + adv["g_loss"] + adv["g_d_fm_loss"]
-    losses, grads = backward(state, losses)
-    metrics = apply_update(state, cfg, losses, new_stats, grads)
-    metrics["d_loss"] = critic_step(critic, mel, fake, spk, draws["patch_d"])
+    losses, grads = backward(state, losses, dp)
+    metrics = apply_update(state, cfg, losses, new_stats, grads, dp)
+    metrics["d_loss"] = critic_step(critic, mel, fake, spk, draws["patch_d"], dp)
     return metrics

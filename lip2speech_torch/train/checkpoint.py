@@ -9,6 +9,10 @@ to a temporary file first and is renamed into place, so a save cut short
 leaves only a temporary file, which listing skips. The JAX package's orbax
 checkpoints are not read here; parameters cross over through
 ``weights.from_flax``.
+
+In a data-parallel run (``dp``) only rank 0 writes and deletes, and every
+rank waits for it before going on, so a rank that reads next finds the
+files in place.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import re
 
 import torch
 
+from lip2speech_torch.parallel.dist import barrier, is_main
+
 _STEP = re.compile(r"step_(\d+)\.pt")
 
 
@@ -25,17 +31,22 @@ def _path(ckpt_dir: str, step: int) -> str:
     return os.path.join(os.path.abspath(ckpt_dir), f"step_{step}.pt")
 
 
-def save_checkpoint(ckpt_dir: str, step: int, state, extra: dict | None = None) -> str:
-    """Write ``state`` (a ``TrainState``) as step ``step``; returns the path."""
+def save_checkpoint(ckpt_dir: str, step: int, state, extra: dict | None = None, dp=None) -> str:
+    """Write ``state`` (a ``TrainState``) as step ``step``; returns the path.
+    Under ``dp`` rank 0 writes and every rank waits for it."""
+    path = _path(ckpt_dir, step)
+    if not is_main(dp):
+        barrier(dp)
+        return path
     os.makedirs(ckpt_dir, exist_ok=True)
     model = {k: v for k, v in state.model.state_dict().items()
              if not k.endswith("num_batches_tracked")}
     payload = {"model": model, "optimizer": state.opt.state_dict(), "step": int(state.step),
                "extra": dict(extra or {})}
-    path = _path(ckpt_dir, step)
     tmp = f"{path}.tmp-{os.getpid()}"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+    barrier(dp)
     return path
 
 
@@ -46,10 +57,13 @@ def available_steps(ckpt_dir: str) -> list[int]:
     return sorted(int(m.group(1)) for m in map(_STEP.fullmatch, os.listdir(ckpt_dir)) if m)
 
 
-def prune_checkpoints(ckpt_dir: str, keep: int) -> None:
-    """Delete the oldest checkpoints, keeping the newest ``keep``."""
-    for s in available_steps(ckpt_dir)[:-keep]:
-        os.remove(_path(ckpt_dir, s))
+def prune_checkpoints(ckpt_dir: str, keep: int, dp=None) -> None:
+    """Delete the oldest checkpoints, keeping the newest ``keep``; under
+    ``dp`` rank 0 deletes and every rank waits for it."""
+    if is_main(dp):
+        for s in available_steps(ckpt_dir)[:-keep]:
+            os.remove(_path(ckpt_dir, s))
+    barrier(dp)
 
 
 def restore_checkpoint(ckpt_dir: str, state=None, step: int | None = None):

@@ -12,6 +12,9 @@ Counterpart of ``lip2speech_tpu/train/logging_utils.py``:
 - mel, attention and gate PNGs drawn with cv2, which the data path already
   needs (no plotting library is required);
 - ``profile_steps``: a ``torch.profiler`` capture around chosen steps.
+
+A logger made with ``enabled=False`` (a data-parallel rank other than 0)
+writes and prints nothing.
 """
 
 from __future__ import annotations
@@ -34,11 +37,13 @@ def _make_tb_writer(run_dir: str):
 
 
 class MetricLogger:
-    def __init__(self, run_dir: str, tensorboard: bool = True):
+    def __init__(self, run_dir: str, tensorboard: bool = True, enabled: bool = True):
         self.run_dir = run_dir
-        os.makedirs(run_dir, exist_ok=True)
+        self.enabled = enabled
+        if enabled:
+            os.makedirs(run_dir, exist_ok=True)
         self.path = os.path.join(run_dir, "metrics.jsonl")
-        self.tb = _make_tb_writer(run_dir) if tensorboard else None
+        self.tb = _make_tb_writer(run_dir) if tensorboard and enabled else None
         self._t0 = time.time()
         self._last = self._t0
 
@@ -47,6 +52,8 @@ class MetricLogger:
         rec = {"step": step, "time": now - self._t0, "step_time": now - self._last,
                **{f"{prefix}{k}": float(v) for k, v in values.items()}}
         self._last = now
+        if not self.enabled:
+            return rec
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
         if self.tb is not None:
@@ -59,6 +66,8 @@ class MetricLogger:
         each an iterable of (name, tensor) or a dict, as one line of
         ``histograms.jsonl``; full histograms of the finite values in
         TensorBoard."""
+        if not self.enabled:
+            return {}
         tensors = {}
         for tag, named in (("param", named_params), ("grad", named_grads)):
             if named is None:
@@ -81,6 +90,8 @@ class MetricLogger:
         return stats
 
     def console(self, step: int, values: dict, total_steps: int | None = None):
+        if not self.enabled:
+            return
         msg = f"[{step}] " + " ".join(f"{k}={float(v):.4f}" for k, v in values.items())
         if total_steps:
             rate = step / max(time.time() - self._t0, 1e-9)
@@ -91,6 +102,8 @@ class MetricLogger:
         """PNGs of a predicted and a target mel (n_mels, M), an attention map
         (M, T), each as a heat map with row 0 at the bottom, and a gate
         curve (M,); arrays or tensors. Files are ``<name>_<step>.png``."""
+        if not self.enabled:
+            return
 
         def arr(x):
             return x.detach().float().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)

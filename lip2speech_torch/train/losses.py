@@ -5,6 +5,12 @@ mel MSE + weighted postnet MSE + mean gate BCE-with-logits + the KLD of the
 content codebook's distribution against uniform; and the WGAN pair of
 ``losses.py:70-112``: the generator's loss with L1 feature matching, the
 critic's loss, the critic's weight clamp and the gradient penalty.
+
+Under data parallelism (``dp``) every loss is this rank's share of the
+global batch's loss, so that the shares sum over the ranks to it and the
+gradients are summed: a mean over the global batch's rows is the local
+rows' sum over the global count. ``global_losses`` sums the shares for the
+logged values, the same on every rank.
 """
 
 from __future__ import annotations
@@ -14,50 +20,77 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from lip2speech_torch.parallel.dist import DataParallel, all_reduce_
+
+
+def share(loss: torch.Tensor, dp: DataParallel | None) -> torch.Tensor:
+    """This rank's share of a mean over the global batch, from the mean
+    over its rows (every rank holds as many rows)."""
+    return loss if dp is None else loss / dp.world
+
+
+def global_losses(losses: dict, dp: DataParallel | None) -> dict[str, torch.Tensor]:
+    """The losses detached and, under data parallelism, summed over the
+    ranks in one collective: the global batch's values on every rank."""
+    out = {k: v.detach() for k, v in losses.items()}
+    if dp is None:
+        return out
+    summed = all_reduce_(torch.stack([v.to(torch.float64) for v in out.values()]), dp)
+    return {k: s.to(v.dtype) for (k, v), s in zip(out.items(), summed)}
+
 
 def lip2speech_loss(outputs: dict, mel_target: torch.Tensor, gate_target: torch.Tensor,
                     postnet_weight: float = 10.0, mel_mask: torch.Tensor | None = None,
-                    kld_weight: float = 1.0) -> dict[str, torch.Tensor]:
+                    kld_weight: float = 1.0, dp: DataParallel | None = None
+                    ) -> dict[str, torch.Tensor]:
     """``outputs`` of the teacher-forced forward (f32), ``mel_target
     (B, n_mels, M)``, ``gate_target (B, M)`` and, for the masked loss,
     ``mel_mask (B, M)`` (True on valid frames) -> the loss dict. The
-    logged KLD is unweighted; ``kld_weight`` scales it in the total only."""
+    logged KLD is unweighted; ``kld_weight`` scales it in the total only.
+    Under data parallelism (``dp``) each value is this rank's share: the
+    masked losses divide by the global batch's count of valid frames."""
     mel_target = mel_target.detach()
     gate_target = gate_target.detach()
+    if mel_mask is not None:
+        mask = mel_mask[:, None, :].to(outputs["mel"].dtype)
+        count = all_reduce_(torch.sum(mask).reshape(1), dp)[0]
+        count = torch.clamp(count * outputs["mel"].shape[1], min=1)
 
     def mse(pred, tgt):
         err = torch.square(pred - tgt)
         if mel_mask is not None:
-            m = mel_mask[:, None, :].to(err.dtype)
-            return torch.sum(err * m) / torch.clamp(torch.sum(m) * pred.shape[1], min=1)
-        return torch.mean(err)
+            return torch.sum(err * mask) / count
+        return share(torch.mean(err), dp)
 
     losses = {"mel_loss": mse(outputs["mel"], mel_target)}
     losses["postnet_mel_loss"] = postnet_weight * mse(outputs["mel_postnet"], mel_target)
     logits = outputs["gate"][..., 0]
     # optax.sigmoid_binary_cross_entropy
     bce = -gate_target * F.logsigmoid(logits) - (1.0 - gate_target) * F.logsigmoid(-logits)
-    losses["gate_loss"] = torch.mean(bce)
+    losses["gate_loss"] = share(torch.mean(bce), dp)
     qy = outputs["content_dist"]
     k = qy.shape[-1]
-    losses["KLD"] = torch.mean(torch.sum(qy * torch.log(qy * k + 1e-20), dim=-1))
+    losses["KLD"] = share(torch.mean(torch.sum(qy * torch.log(qy * k + 1e-20), dim=-1)), dp)
     losses["total"] = (losses["mel_loss"] + losses["postnet_mel_loss"] + losses["gate_loss"]
                        + kld_weight * losses["KLD"])
     return losses
 
 
 def generator_loss(fake_pred: torch.Tensor, fake_features: list[torch.Tensor],
-                   real_features: list[torch.Tensor], fm_weight: float = 10.0) -> dict:
+                   real_features: list[torch.Tensor], fm_weight: float = 10.0,
+                   dp: DataParallel | None = None) -> dict:
     """WGAN generator loss ``-mean(D(fake))`` and ``fm_weight`` times the sum
     over the critic's features of the mean |fake - real| (the real features
-    take no gradient)."""
+    take no gradient); this rank's shares under ``dp``."""
     fm = sum(torch.mean(torch.abs(f - r.detach())) for f, r in zip(fake_features, real_features))
-    return {"g_loss": -torch.mean(fake_pred), "g_d_fm_loss": fm_weight * fm}
+    return {"g_loss": share(-torch.mean(fake_pred), dp), "g_d_fm_loss": share(fm_weight * fm, dp)}
 
 
-def discriminator_loss(real_pred: torch.Tensor, fake_pred: torch.Tensor) -> torch.Tensor:
-    """WGAN critic loss ``-mean(D(real)) + mean(D(fake))``."""
-    return -torch.mean(real_pred) + torch.mean(fake_pred)
+def discriminator_loss(real_pred: torch.Tensor, fake_pred: torch.Tensor,
+                       dp: DataParallel | None = None) -> torch.Tensor:
+    """WGAN critic loss ``-mean(D(real)) + mean(D(fake))``; this rank's
+    share under ``dp``."""
+    return share(-torch.mean(real_pred) + torch.mean(fake_pred), dp)
 
 
 @torch.no_grad()

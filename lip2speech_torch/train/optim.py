@@ -90,11 +90,12 @@ class AMSGrad:
         self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
         self.total_notfinite = torch.zeros((), dtype=torch.int32, device=dev)
 
-    def flatten(self, grads) -> torch.Tensor:
-        """The trainable gradients as one f32 vector; a missing gradient
-        counts as zeros."""
-        return torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1).float()
+    def flatten(self, grads, dtype=torch.float32) -> torch.Tensor:
+        """The trainable gradients as one vector of ``dtype`` (None: the
+        gradients' own); a missing gradient counts as zeros."""
+        flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
                           for p, g in zip(self.params, grads)])
+        return flat if dtype is None else flat.to(dtype)
 
     def accepts(self, g: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
         """0-d bool: the step is taken (steps 1 and 2 of the chain)."""
@@ -108,11 +109,12 @@ class AMSGrad:
     @torch.no_grad()
     def step(self, grads) -> dict[str, torch.Tensor]:
         """One update from the trainable gradients (in ``self.names``
-        order), written in place into the parameters. Returns ``ok`` (the
-        step was taken), ``grad_norm`` (global norm of the raw gradients)
-        and, when guarded, ``notfinite_count``; all 0-d tensors."""
+        order, or already ``flatten``ed), written in place into the
+        parameters. Returns ``ok`` (the step was taken), ``grad_norm``
+        (global norm of the raw gradients) and, when guarded,
+        ``notfinite_count``; all 0-d tensors."""
         cfg = self.cfg
-        g = self.flatten(grads)
+        g = grads if torch.is_tensor(grads) else self.flatten(grads)
         norm = torch.sqrt(torch.sum(g * g))
         ok = self.accepts(g, norm)
         # clip_by_global_norm: select(norm < clip, g, g / norm * clip)

@@ -19,6 +19,16 @@ here a step without explicit ``draws`` draws them from a generator seeded
 by ``(seed, step)``, so a resumed run draws what the uninterrupted run
 would have drawn. The JAX and torch streams never agree: a parity test
 hands both sides the same draws.
+
+Data parallelism (``dp``, ``parallel/dist.py``): each rank runs the step
+on its rows of the global batch. The per-row draws are made at the global
+shape from the step's generator and cut to the rank's rows
+(``parallel.RowDraws``); the BatchNorm moments and the clipped cotangents'
+norms cover the global batch (``layers.data_parallel``); the losses are
+the rank's shares, logged as their sum; and the flat gradient vector is
+summed over the ranks, in the gradients' own type, before the optimizer
+reads it, so the guard, the norm and the update are the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -31,9 +41,10 @@ from torch.func import functional_call
 from torch.profiler import record_function
 
 from lip2speech_torch.config import Config
-from lip2speech_torch.models.layers import FlaxRuleBatchNorm
+from lip2speech_torch.models.layers import FlaxRuleBatchNorm, data_parallel
 from lip2speech_torch.models.lip2speech import Lip2Speech
-from lip2speech_torch.train.losses import lip2speech_loss
+from lip2speech_torch.parallel.dist import DataParallel, RowDraws, all_reduce_
+from lip2speech_torch.train.losses import global_losses, lip2speech_loss
 from lip2speech_torch.train.optim import AMSGrad, all_finite, fold_lstm_biases_, is_trainable
 
 
@@ -86,13 +97,14 @@ def batch_norm_stats(model: torch.nn.Module) -> dict[str, torch.Tensor]:
 
 
 def forward_losses(state: TrainState, batch: dict, tf_ratio, cfg: Config,
-                   draws: dict | None = None, generator: torch.Generator | None = None):
+                   draws: dict | None = None, generator=None, dp: DataParallel | None = None):
     """The train-mode forward and the loss dict, with their graph.
     ``batch`` holds video (B,T,H,W,3), faces (B,2,160,160,3) or
     speaker_embedding (B,256), mel (B,80,M), gate (B,M) and mel_mask (B,M).
     Returns (the outputs in f32, the losses, the new BatchNorm statistics by
     buffer name); terms added to ``losses["total"]`` before ``backward``
-    join the gradients."""
+    join the gradients. Under ``dp`` the batch is this rank's rows, the
+    statistics are the global batch's and the losses this rank's shares."""
     model = state.model
     bf16 = cfg.train.bf16
     was_training = model.training
@@ -108,7 +120,7 @@ def forward_losses(state: TrainState, batch: dict, tf_ratio, cfg: Config,
         weights = cast_floats(weights, torch.bfloat16)
         fwd_batch = cast_floats(batch, torch.bfloat16)
     try:
-        with record_function("train.forward"):
+        with record_function("train.forward"), data_parallel(model, dp):
             outputs = functional_call(
                 model, weights, (fwd_batch["video"], fwd_batch.get("faces")),
                 dict(speaker_embedding=fwd_batch.get("speaker_embedding"), generator=generator,
@@ -124,27 +136,37 @@ def forward_losses(state: TrainState, batch: dict, tf_ratio, cfg: Config,
     losses = lip2speech_loss(
         outputs, batch["mel"], batch["gate"], postnet_weight=cfg.train.postnet_loss_weight,
         mel_mask=batch.get("mel_mask") if cfg.train.masked_loss else None,
-        kld_weight=cfg.train.kld_weight)
+        kld_weight=cfg.train.kld_weight, dp=dp)
     return outputs, losses, new_stats
 
 
-def backward(state: TrainState, losses: dict) -> tuple[dict, tuple]:
+def backward(state: TrainState, losses: dict, dp: DataParallel | None = None) -> tuple[dict, tuple]:
     """(the losses detached, the gradients of ``losses["total"]`` with
-    respect to the trainable parameters, in ``state.opt.names`` order)."""
+    respect to the trainable parameters, in ``state.opt.names`` order).
+    Under ``dp`` the gradients are this rank's share and the losses the
+    global batch's (``losses.global_losses``)."""
     with record_function("train.backward"):
         grads = torch.autograd.grad(losses["total"], state.opt.params, allow_unused=True)
-    return {k: v.detach() for k, v in losses.items()}, grads
+    return global_losses(losses, dp), grads
 
 
 def loss_and_grad(state: TrainState, batch: dict, tf_ratio, cfg: Config,
-                  draws: dict | None = None, generator: torch.Generator | None = None):
+                  draws: dict | None = None, generator=None, dp: DataParallel | None = None):
     """Forward (train mode) + loss dict + gradients, as the train step
     computes them (``forward_losses``, then ``backward``). Returns (losses,
     new BatchNorm statistics by buffer name, the trainable gradients in
-    ``state.opt.names`` order)."""
-    _, losses, new_stats = forward_losses(state, batch, tf_ratio, cfg, draws, generator)
-    losses, grads = backward(state, losses)
+    ``state.opt.names`` order; under ``dp`` this rank's share, which sum
+    over the ranks to the global batch's)."""
+    _, losses, new_stats = forward_losses(state, batch, tf_ratio, cfg, draws, generator, dp)
+    losses, grads = backward(state, losses, dp)
     return losses, new_stats, grads
+
+
+def step_draws(seed: int, step: int, device, dp: DataParallel | None, local_batch: int):
+    """The step's generator, ``step_generator(seed, step)``; under ``dp`` a
+    ``RowDraws`` over it for this rank's rows of the global batch."""
+    gen = step_generator(seed, step, device)
+    return gen if dp is None else RowDraws.for_rank(gen, dp, local_batch)
 
 
 def guard_batch_stats(cfg: Config, grads_ok: torch.Tensor, new_stats: dict,
@@ -160,12 +182,16 @@ def guard_batch_stats(cfg: Config, grads_ok: torch.Tensor, new_stats: dict,
 
 
 def apply_update(state: TrainState, cfg: Config, losses: dict, new_stats: dict,
-                 grads) -> dict[str, torch.Tensor]:
+                 grads, dp: DataParallel | None = None) -> dict[str, torch.Tensor]:
     """The guarded update from ``grads``, the new statistics kept only when
-    it is taken, and one more step. Returns the metrics: ``losses``,
+    it is taken, and one more step. Under ``dp`` the flat gradient vector is
+    summed over the ranks first. Returns the metrics: ``losses``,
     ``grad_norm`` and, when updates are guarded, ``notfinite_count``."""
     with record_function("train.optimizer"):
-        info = state.opt.step(grads)
+        # summed over the ranks in the gradients' own type (f32 under the bf16 policy)
+        with record_function("train.grad_all_reduce"):
+            g = all_reduce_(state.opt.flatten(grads, dtype=None), dp).float()
+        info = state.opt.step(g)
     stats = batch_norm_stats(state.model)
     with torch.no_grad(), record_function("train.batch_stats"):
         for name, value in guard_batch_stats(cfg, info["ok"], new_stats, stats).items():
@@ -179,14 +205,18 @@ def apply_update(state: TrainState, cfg: Config, losses: dict, new_stats: dict,
 
 
 def train_step(state: TrainState, batch: dict, tf_ratio, cfg: Config,
-               draws: dict | None = None, seed: int | None = None) -> dict[str, torch.Tensor]:
+               draws: dict | None = None, seed: int | None = None,
+               dp: DataParallel | None = None) -> dict[str, torch.Tensor]:
     """One optimisation step, in place on ``state``. Draws absent from
     ``draws`` come from ``step_generator(seed, state.step)``, ``seed``
-    defaulting to ``cfg.train.seed``.
+    defaulting to ``cfg.train.seed``; under ``dp`` ``batch`` (and each
+    given draw) is this rank's rows of the global batch.
     Returns the metrics as 0-d tensors on the device: the losses,
     ``grad_norm`` (global norm of the raw gradients) and, when updates are
-    guarded, ``notfinite_count``. Nothing waits for the device."""
+    guarded, ``notfinite_count``, the global batch's under ``dp``. Nothing
+    waits for the device (but a collective of the gloo backend does)."""
     seed = cfg.train.seed if seed is None else seed
-    gen = step_generator(seed, state.step, batch["mel"].device)
-    losses, new_stats, grads = loss_and_grad(state, batch, tf_ratio, cfg, draws, gen)
-    return apply_update(state, cfg, losses, new_stats, grads)
+    mel = batch["mel"]
+    gen = step_draws(seed, state.step, mel.device, dp, mel.shape[0])
+    losses, new_stats, grads = loss_and_grad(state, batch, tf_ratio, cfg, draws, gen, dp)
+    return apply_update(state, cfg, losses, new_stats, grads, dp)

@@ -167,9 +167,9 @@ def test_rewind_on_stall_restores_a_safety_step_on_a_new_stream(root, tmp_path, 
     calls = []
     real_step = train_cli.train_step
 
-    def step(state, batch, tf_ratio, cfg, seed=None):
+    def step(state, batch, tf_ratio, cfg, seed=None, dp=None):
         calls.append((state.step, seed, tf_ratio))
-        return real_step(state, batch, tf_ratio, cfg, seed=seed)
+        return real_step(state, batch, tf_ratio, cfg, seed=seed, dp=dp)
 
     monkeypatch.setattr(train_cli, "train_step", step)
     cfg = tiny_config(reject_grad_norm_above=1e-12, bf16=False, tf_ratio_epochs=1,
@@ -297,7 +297,8 @@ def test_train_cli_needs_a_root_and_defaults_to_cuda():
         train_cli.parse_args([])
     args = train_cli.parse_args(["--root", "x"])
     assert args.device == "cuda"
-    assert not any(hasattr(args, a) for a in ("multihost", "data_parallel", "model_parallel"))
+    # the JAX CLI's parallel flags, with its defaults
+    assert (args.multihost, args.data_parallel, args.model_parallel) == (False, -1, 1)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_cli.train(args, dataclasses.replace(Config()))

@@ -128,6 +128,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import lip2speech_torch.prep.avspeech_acquire, lip2speech_torch.prep.wild_downloader\n"
         "import lip2speech_torch.utils, lip2speech_torch.utils.logger\n"
         "import lip2speech_torch.utils.devtime\n"
+        "import lip2speech_torch.parallel, lip2speech_torch.parallel.dist\n"
+        "import lip2speech_torch.models.layers, lip2speech_torch.models.decoder\n"
+        "import lip2speech_torch.ops.griffin_lim, lip2speech_torch.train.logging_utils\n"
+        "import lip2speech_torch.data.loader, lip2speech_torch.cli.common\n"
         "banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lip2speech_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not bad, bad\n"
