@@ -116,6 +116,26 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    one kernel launch a rank per eval batch; both ranks resume at the saved
    step and end with the same parameters (a digest), as do the speaker
    ranks; finite losses. Prints each with the card's name and power limit.
+12. tensor parallelism on the one card (``lip2speech_torch/parallel/tensor.py``):
+   ``ops.image.align_face_batched`` on 32 seeded 160x160 crops, card
+   against CPU (``ALIGN_*``); then ranks over gloo as in phase 11: (a) a 1
+   x 2 grid (data x model; the K/V banks and ``conv_last`` sharded over the
+   two ranks, which both hold all rows) against one rank on the first f32
+   step at B=16 (``DP_*``, and ``TRAIN_F64_REL`` in f64), the replicated
+   tensors the same on both ranks; the bf16 step on a staged batch of 64
+   on one rank and on the grid with each one's peak memory, beside the
+   memory reckoned to be sharded away; a forward's 11 all-gathers and a
+   backward's 11 model-group all-reduces alone, at the shapes the step
+   gave them; (b) ``cli.train`` on phase 5's fixture as a 2 x 2 grid, four
+   ranks of 32 rows, B=64 bf16, 3 steps with an eval tick (each rank
+   decodes its data index's 16 rows of each eval batch through the AR
+   kernel); then a digest of the gathered state, the kernel against its
+   plain version on each rank's rows (the ranks encode together, then take
+   the card in turn) and the staged step's ms on the grid; then one rank
+   resumes the grid's checkpoint, holding the gathered state bit for bit.
+   Checks: the step within the bounds, one kernel launch a rank per eval
+   batch, rank 0's records alone, the same digest on every rank, finite
+   losses, the resume.
 
 Timings print with the card's name and power limit. The line before the
 last is a JSON object listing each kernel; the last line is
@@ -124,7 +144,7 @@ beside this file, it exits non-zero and prints no result.
 
 Usage: python3 chip_smoke.py [--profile | --kernel-only | --train-only | --cli-only |
                               --adv-only | --demo-only | --corpora-only | --speaker-only |
-                              --prep-only | --dp-only]
+                              --prep-only | --dp-only | --tp-only]
 
 ``--profile`` adds, for each timed batch and for a train step, the device
 time by kernel of one batch (torch.profiler) and the device's idle share.
@@ -133,8 +153,8 @@ per-stage times) and prints no result line; ``--train-only`` runs phases 1
 and 4, ``--cli-only`` phases 1 and 5, ``--adv-only`` phases 1 and 6 and
 ``--demo-only`` phases 1 and 7, ``--corpora-only`` phases 1 and 8 and
 ``--speaker-only`` phases 1 and 9, ``--prep-only`` phases 1 and 10, ``--dp-only``
-phases 1 and 11, and none of them prints a result line. ``--dp-rank`` is the
-entry of one rank of phase 11.
+phases 1 and 11, ``--tp-only`` phases 1 and 12, and none of them prints a
+result line. ``--dp-rank`` is the entry of one rank of phases 11 and 12.
 """
 
 from __future__ import annotations
@@ -275,6 +295,15 @@ DP_CHECK_B, DP_LOSS_RTOL, DP_LOSS_ATOL, DP_STAT_RTOL = 16, 1e-5, 1e-6, 1e-4
 DP_NORM_RTOL = 1e-3
 DP_TIMED = 3
 DP_TIMEOUT_S = 600
+# phase 12, tensor parallelism: ranks on the one card over gloo, as phase 11's.
+# (a) a 1 x 2 grid (data x model) against one rank on the first f32 step at
+# DP_CHECK_B, within phase 11's DP_* bounds (and TRAIN_F64_REL in f64);
+# (b) cli.train on a 2 x 2 grid for TP_STEPS steps with an eval tick
+TP_CHECK_GRID, TP_CLI_GRID, TP_STEPS = (1, 2), (2, 2), 3
+# align_face_batched on the card against the CPU, pixel values 0-255: within
+# ALIGN_TOL, but for at most ALIGN_EDGE_VALUES values whose sampling position
+# lies within rounding of the image's edge (inside on one side only)
+ALIGN_TOL, ALIGN_EDGE_VALUES = 1e-2, 60
 
 
 def fail(msg: str):
@@ -888,15 +917,13 @@ def _step_rows(run_dir: str) -> tuple[list[dict], list[dict]]:
     return [r for r in rows if "total" in r], [r for r in rows if "eval/estoi" in r]
 
 
-def ar_decode_on_rows(cfg, model, batch, dev, label: str, card: str) -> dict:
-    """The AR kernel against its plain version on a prepared eval batch
-    (f32 weights, the mels' M steps), with their times and the bound;
-    fails beyond ``TOL['float32']``."""
+def encode_rows(model, batch, dev) -> tuple[dict, dict, object]:
+    """(the AR loop's parameters, the decoder's encoded inputs, the BOS rows)
+    of a prepared eval batch, in eval mode with the model's f32 weights.
+    A tensor-parallel model runs its banks' collectives here."""
     import torch
 
-    from lip2speech_torch.kernels import ar_decode as ar
-
-    B, M = batch["mel"].shape[0], batch["mel"].shape[-1]
+    B = batch["mel"].shape[0]
     model.eval()
     with torch.no_grad():
         feats = model.encoder(batch["video"])
@@ -904,7 +931,25 @@ def ar_decode_on_rows(cfg, model, batch, dev, label: str, card: str) -> dict:
         visual = torch.cat([feats, emb[:, None].expand(-1, feats.shape[1], -1)], -1)
         dec = model.decoder
         enc = dec.encode(visual, emb, generator=torch.Generator(device=dev).manual_seed(SEED))
-        p, bos = dec.ar_params(), dec.BOS.reshape(1, -1).expand(B, -1)
+        return dec.ar_params(), enc, dec.BOS.reshape(1, -1).expand(B, -1)
+
+
+def ar_decode_on_rows(cfg, model, batch, dev, label: str, card: str) -> dict:
+    """The AR kernel against its plain version on a prepared eval batch
+    (f32 weights, the mels' M steps), with their times and the bound;
+    fails beyond ``TOL['float32']``."""
+    p, enc, bos = encode_rows(model, batch, dev)
+    return ar_decode_check(cfg, p, enc, bos, batch["mel"].shape[-1], dev, label, card)
+
+
+def ar_decode_check(cfg, p, enc, bos, M: int, dev, label: str, card: str) -> dict:
+    """``ar_decode_on_rows`` on the encoded inputs (``encode_rows``)."""
+    import torch
+
+    from lip2speech_torch.kernels import ar_decode as ar
+
+    B = bos.shape[0]
+    with torch.no_grad():
         f32 = torch.float32
         ref = ar.ar_decode_reference(cfg.model, p, enc, bos, M, f32)
         got = ar.ar_decode_cuda(cfg.model, p, enc, bos, M, f32)
@@ -1839,13 +1884,15 @@ def run_ranks(world: int, job: str, tmp: str, dev, cfg) -> list[dict]:
 
 
 def state_hash(module) -> str:
-    """A digest of every tensor of ``module``'s state, bit for bit."""
+    """A digest of every tensor of ``module``'s state (or of a state dict),
+    bit for bit."""
     import hashlib
 
     import torch
 
     h = hashlib.sha256()
-    for k, v in sorted(module.state_dict().items()):
+    sd = module if isinstance(module, dict) else module.state_dict()
+    for k, v in sorted(sd.items()):
         h.update(k.encode())
         h.update(v.detach().reshape(-1).contiguous().cpu().view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
@@ -1885,11 +1932,42 @@ def param_caps(before: dict, want: dict, got: dict, lr: float) -> dict:
 LOSSES = ("mel_loss", "postnet_mel_loss", "gate_loss", "KLD", "total")
 
 
+def stats_over_tolerance(mine: dict, theirs: dict) -> float:
+    """The largest distance of a BatchNorm statistic in ``mine`` from
+    ``theirs`` over its tolerance: ``DP_STAT_RTOL`` of the tensor's largest
+    entry plus ``TRAIN_FLOOR`` of the largest of its kind (<= 1 within)."""
+    def kind(k):
+        return k.rsplit(".", 1)[-1]
+
+    peak = {}
+    for k, v in theirs.items():
+        peak[kind(k)] = max(peak.get(kind(k), 0.0), float(v.abs().max()))
+    return max(float((mine[k] - v).abs().max())
+               / (DP_STAT_RTOL * float(v.abs().max()) + TRAIN_FLOOR * peak[kind(k)])
+               for k, v in theirs.items())
+
+
+def median_ms(fn, dev, reps: int = DP_TIMED) -> float:
+    """The median host ms of ``reps`` synchronised calls of ``fn`` after one
+    warm-up."""
+    import numpy as np
+    import torch
+
+    fn()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
 def dp_step_check(cfg, dev, card: str) -> dict:
     """Phase 11 (b): the first f32 step on one rank against two, the same
     global batch and draws; then the bf16 step's ms on one rank against
     two on a staged batch, and the collectives' ms."""
-    import numpy as np
     import torch
 
     from lip2speech_torch.models.layers import FlaxRuleBatchNorm
@@ -1939,15 +2017,8 @@ def dp_step_check(cfg, dev, card: str) -> dict:
             out["grad_norm"] = [float(got["grad_norm"]), float(want["grad_norm"])]
             out["part_norms"] = {part: [g, w] for part, g, w in
                                  zip(("encoder", "decoder"), got_norms, want_norms)}
-            mine, theirs = batch_norm_stats(state.model), batch_norm_stats(ref.model)
-            kind_peak = {}
-            for k, v in theirs.items():
-                kind = k.rsplit(".", 1)[-1]
-                kind_peak[kind] = max(kind_peak.get(kind, 0.0), float(v.abs().max()))
-            out["stats"] = max(
-                float((mine[k] - v).abs().max())
-                / (DP_STAT_RTOL * float(v.abs().max()) + TRAIN_FLOOR * kind_peak[k.rsplit(".", 1)[-1]])
-                for k, v in theirs.items())  # <= 1 within the tolerance
+            out["stats"] = stats_over_tolerance(batch_norm_stats(state.model),
+                                                batch_norm_stats(ref.model))
             out["params"] = param_caps(before, dict(zip(ref.opt.names, ref.opt.params)),
                                        dict(zip(state.opt.names, state.opt.params)),
                                        cfg.train.learning_rate)
@@ -1965,15 +2036,7 @@ def dp_step_check(cfg, dev, card: str) -> dict:
         local = {k: pdist.local_rows(v, dp.rank, dp.world) for k, v in batch.items()}
 
         def timed(fn):
-            fn()
-            ms = []
-            for _ in range(DP_TIMED):
-                torch.cuda.synchronize(dev)
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize(dev)
-                ms.append((time.perf_counter() - t0) * 1e3)
-            return float(np.median(ms))
+            return median_ms(fn, dev)
 
         if dp.rank == 0:
             alone = copy.deepcopy(state)
@@ -2083,6 +2146,10 @@ def dp_rank(job: str, tmp: str, device: str) -> int:
     if job == "main":
         out = {"step": dp_step_check(cfg, dev, card), "cli": dp_cli(cfg, tmp, dev, card),
                "speaker": dp_speaker(cfg, tmp, dev)}
+    elif job == "tp_step":
+        out = {"tp_step": tp_step_check(cfg, dev, card)}
+    elif job == "tp_cli":
+        out = {"tp_cli": tp_cli(cfg, tmp, dev, card)}
     else:
         from lip2speech_torch.cli import train as train_cli
 
@@ -2115,6 +2182,9 @@ def _rehearse_on_cpu():
     decoder_mod.ar_decode = lambda cfg, p, enc, bos, n, weight_dtype=None: counted(
         cfg, p, enc, bos, n, weight_dtype)
     torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.empty_cache = lambda: None
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
 
     def host_ms(fn, reps):
         t0 = time.perf_counter()
@@ -2238,6 +2308,357 @@ def phase_dp(cfg, card: str, dev) -> dict:
             fail("; ".join(faults))
         return {"launches": [c["launches"] for c in cli], "err": max(c["k1"]["err"] for c in cli)}
 
+def regroup_(state, dp) -> None:
+    """Point a tensor-parallel train state's column-parallel convs and
+    optimizer at ``dp``, a new group of the same grid (the run's group has
+    been shut down)."""
+    from lip2speech_torch.parallel import tensor
+
+    for m in state.model.modules():
+        if isinstance(m, tensor.ColumnParallel) and m.tp is not None:
+            m.tp = dp
+    state.opt.tp = dp
+
+
+def tp_part_norms(st, g, grid) -> list[float]:
+    """The encoder's and the decoder's gradient norms of the flat gradient
+    ``g`` (summed over the data group), the shards' squares summed over the
+    model group."""
+    import torch
+    import torch.distributed as dist
+
+    enc = torch.cat([torch.full((p.numel(),), n.startswith("encoder."), device=g.device)
+                     for n, p in zip(st.opt.names, st.opt.params)])
+    shard = st.opt.shard_mask
+    sq = g.double() ** 2
+    out = []
+    for part in (enc, ~enc):
+        if shard is None:
+            out.append(float(torch.sqrt(sq[part].sum())))
+            continue
+        sums = torch.stack([sq[part & ~shard].sum(), sq[part & shard].sum()])
+        dist.all_reduce(sums[1:], group=grid.model_group)
+        out.append(float(torch.sqrt(sums.sum())))
+    return out
+
+
+def tp_step_check(cfg, dev, card: str) -> dict:
+    """Phase 12 (a), on a 1 x 2 grid: the first f32 step against one rank on
+    the whole batch, the same draws, then in f64; the bf16 step's ms and
+    peak memory on the grid and on one rank on a staged batch; the sharded
+    convs' collectives alone."""
+    import torch
+    import torch.distributed as dist
+
+    from lip2speech_torch.models.lip2speech import Lip2Speech, init_random_
+    from lip2speech_torch.parallel import dist as pdist
+    from lip2speech_torch.parallel import tensor
+    from lip2speech_torch.train.train_step import (apply_update, batch_norm_stats,
+                                                   create_train_state, loss_and_grad,
+                                                   step_draws, train_step)
+
+    cfg32 = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, bf16=False))
+
+    def make(grid, c=cfg32, dtype=torch.float32):
+        model = init_random_(Lip2Speech(cfg.model), torch.Generator().manual_seed(SEED))
+        model.to(dev, dtype)
+        tensor.shard_(model, grid)
+        return create_train_state(c, model)
+
+    def step_with_norms(st, b, grid):
+        gen = step_draws(SEED, st.step, dev, grid, b["mel"].shape[0])
+        losses, stats, grads = loss_and_grad(st, b, TRAIN_TF, cfg32, None, gen, grid)
+        norms = tp_part_norms(st, pdist.all_reduce_(st.opt.flatten(grads, dtype=None), grid), grid)
+        return apply_update(st, cfg32, losses, stats, grads, grid), norms
+
+    def params(st):
+        full = dict(tensor.full_named_parameters(st.model))
+        return {n: full[n].detach().clone() for n in st.opt.names}
+
+    next_group_port()
+    dp = pdist.init_from_env(str(dev), "gloo", n_model=TP_CHECK_GRID[1])
+    try:
+        out = {"grid": [dp.n_data, dp.n_model]}
+        batch = make_train_batch(cfg, DP_CHECK_B, SEED + 5, dev)
+        batch.pop("audio"), batch.pop("audio_lengths")
+        state = make(dp)
+        out["sharded"] = len(tensor.layout(state.model)[1])
+        before = params(state)
+        got, got_norms = step_with_norms(state, batch, dp)
+        held, shards = tensor.state_parts(state.model)
+        out["same_on_ranks"] = pdist.same_on_all_ranks(held, dp, shards)
+        after, mine = params(state), batch_norm_stats(state.model)
+        if dp.rank == 0:
+            ref = make(None)
+            want, want_norms = step_with_norms(ref, batch, None)
+            out["losses"] = {k: [float(got[k]), float(want[k])] for k in LOSSES}
+            out["grad_norm"] = [float(got["grad_norm"]), float(want["grad_norm"])]
+            out["part_norms"] = {part: [g, w] for part, g, w in
+                                 zip(("encoder", "decoder"), got_norms, want_norms)}
+            out["stats"] = stats_over_tolerance(mine, batch_norm_stats(ref.model))
+            out["params"] = param_caps(before, dict(zip(ref.opt.names, ref.opt.params)), after,
+                                       cfg.train.learning_rate)
+            del ref
+        del state, before, after, mine
+        # the same step in f64: only the order of the reductions differs
+        b64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+        metrics, norms = step_with_norms(make(dp, dtype=torch.float64), b64, dp)
+        got64 = [float(metrics[k]) for k in LOSSES] + norms
+        if dp.rank == 0:
+            metrics, norms = step_with_norms(make(None, dtype=torch.float64), b64, None)
+            want64 = [float(metrics[k]) for k in LOSSES] + norms
+            out["f64"] = max(abs(g - w) / abs(w) for g, w in zip(got64, want64))
+        del metrics, b64
+        torch.cuda.empty_cache()
+
+        # the bf16 step on a staged batch: the grid, then one rank alone
+        batch = make_train_batch(cfg, TRAIN_B, SEED + 6, dev)
+        batch.pop("audio"), batch.pop("audio_lengths")
+        state = make(dp, c=cfg)
+        shapes = {"gather": [], "reduce": []}
+        real = (tensor.gather_channels, tensor.copy_to_model)
+
+        def record(kind, fn):
+            def wrapped(x, grid):
+                shapes[kind].append((tuple(x.shape), x.dtype))
+                return fn(x, grid)
+            return wrapped
+
+        tensor.gather_channels = record("gather", real[0])
+        tensor.copy_to_model = record("reduce", real[1])
+        train_step(state, batch, TRAIN_TF, cfg, dp=dp)  # also the timer's warm-up
+        tensor.gather_channels, tensor.copy_to_model = real
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out["grid_ms"] = median_ms(lambda: train_step(state, batch, TRAIN_TF, cfg, dp=dp), dev)
+        out["grid_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        # the collectives alone, at the shapes the step gave them
+        gathers = [torch.zeros(s, dtype=t, device=dev) for s, t in shapes["gather"]]
+        reduces = [torch.zeros(s, dtype=t, device=dev) for s, t in shapes["reduce"]]
+        out["n_gather"], out["n_reduce"] = len(gathers), len(reduces)
+        out["gather_mib"] = sum(x.numel() * x.element_size() for x in gathers) * dp.n_model / 2**20
+        out["reduce_mib"] = sum(x.numel() * x.element_size() for x in reduces) / 2**20
+
+        def gather_round():
+            for x in gathers:
+                tensor.gather(x, dp, 1)
+
+        def reduce_round():
+            for x in reduces:
+                dist.all_reduce(x, group=dp.model_group)
+
+        out["gather_ms"] = median_ms(gather_round, dev)
+        out["reduce_ms"] = median_ms(reduce_round, dev)
+        del state, gathers, reduces
+        torch.cuda.empty_cache()
+        pdist.barrier(dp)
+        if dp.rank == 0:
+            alone = make(None, c=cfg)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out["one_ms"] = median_ms(lambda: train_step(alone, batch, TRAIN_TF, cfg), dev)
+            out["one_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            sharded = sum(p.numel() for n, p in alone.model.named_parameters()
+                          if n in tensor.partition_params(
+                              {n: tuple(p.shape) for n, p in alone.model.named_parameters()},
+                              dp.n_model))
+            out["sharded_params"] = sharded
+            del alone
+        pdist.barrier(dp)
+        return out
+    finally:
+        pdist.shutdown(dp)
+
+
+def tp_cli(cfg, tmp: str, dev, card: str) -> dict:
+    """Phase 12 (b): this rank of ``cli.train`` on a 2 x 2 grid over gloo
+    (steps, an eval tick through K1); then, in a new group of the same grid,
+    a digest of the gathered state, K1 against its plain version on this
+    rank's data index's rows of the first eval batch (the ranks encode
+    together, then take the card in turn), and the bf16 step's ms on a
+    staged batch."""
+    import torch
+
+    from lip2speech_torch.cli import train as train_cli
+    from lip2speech_torch.data import get_dataset
+    from lip2speech_torch.kernels import ar_decode as ar
+    from lip2speech_torch.parallel import dist as pdist
+    from lip2speech_torch.parallel import tensor
+    from lip2speech_torch.train.train_step import train_step
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    n_data, n_model = TP_CLI_GRID
+    root = os.path.join(tmp, "lrw")
+    extra = ("--dist_backend", "gloo", "--data_parallel", str(n_data), "--model_parallel",
+             str(n_model))
+    # the main path: the kernel's launches count from here
+    next_group_port()
+    ar.launches = 0
+    first = train_cli.train(_cli_args(root, tmp, "tp", dev, "--max_iters", str(TP_STEPS),
+                                      "--eval_interval", str(TP_STEPS), *extra), cfg)
+    if str(dev) != "cpu":
+        torch.cuda.synchronize(dev)
+    launches = ar.launches
+    d = rank // n_model
+    per = min(32, TRAIN_B) // n_data
+    ds = get_dataset("LRW", root, mode="test", cfg=cfg.data)
+    _, rows = eval_rows(cfg, ds, range(d * per, (d + 1) * per), dev)
+    state = first["state"]
+    next_group_port()
+    dp = pdist.init_from_env(str(dev), "gloo", n_model=n_model)
+    try:
+        regroup_(state, dp)
+        digest = state_hash(tensor.full_state_dict(state.model))
+        p, enc, bos = encode_rows(state.model, rows, dev)
+        for turn in range(world):
+            if turn == rank:
+                k1 = ar_decode_check(cfg, p, enc, bos, rows["mel"].shape[-1], dev,
+                                     f"rank {rank}'s eval rows (data index {d})", card)
+            pdist.barrier(dp)
+        del p, enc, bos
+        batch = make_train_batch(cfg, TRAIN_B, SEED + 6, dev)
+        batch.pop("audio"), batch.pop("audio_lengths")
+        local = {k: pdist.local_rows(v, dp.data_index, dp.n_data) for k, v in batch.items()}
+        grid_ms = median_ms(lambda: train_step(state, local, TRAIN_TF, cfg, dp=dp), dev)
+    finally:
+        pdist.shutdown(dp)
+    return {"launches": launches, "k1": k1, "best": first["best_score"],
+            "final": first["final_step"], "hash": digest, "ms": grid_ms}
+
+
+def align_check(dev, card: str) -> None:
+    """``ops.image.align_face_batched`` on the card against the CPU: 32 seeded
+    160x160 face crops, landmarks with eye lines tilted both ways."""
+    import numpy as np
+    import torch
+
+    from lip2speech_torch.ops.image import align_face_batched
+
+    rng = np.random.RandomState(SEED)
+    n, size = 32, 160
+    crops = torch.from_numpy(rng.randint(0, 256, (n, size, size, 3)).astype(np.float32))
+    lm = rng.uniform(40, 120, (n, 68, 2))
+    tilt = np.linspace(-0.5, 0.5, n)
+    lm[:, 36:42] = np.array([55.0, 70.0]) + rng.uniform(-4, 4, (n, 6, 2))
+    lm[:, 42:48] = (np.stack([55 + 50 * np.cos(tilt), 70 + 50 * np.sin(tilt)], -1)[:, None]
+                    + rng.uniform(-4, 4, (n, 6, 2)))
+    lm = torch.from_numpy(np.round(lm).astype(np.int32))
+    want = align_face_batched(crops, lm)
+    got = align_face_batched(crops.to(dev), lm.to(dev))
+    ms = median_ms(lambda: align_face_batched(crops.to(dev), lm.to(dev)), dev)
+    err = (got.cpu() - want).abs()
+    # bilinear sampling is continuous, so a sampling position rounded to the
+    # other side of a pixel moves the value by rounding; only a position on
+    # the image's edge (inside on one side, outside on the other) moves it more
+    off = int((err > ALIGN_TOL).sum())
+    print(f"align_face_batched on {n} crops of {size}x{size}: max |card - CPU| "
+          f"{float(err.max()):.3e}, {off} of {err.numel()} values over {ALIGN_TOL} "
+          f"(at most {ALIGN_EDGE_VALUES}); {ms:.3f} ms a batch with the copies [{card}]")
+    if off > ALIGN_EDGE_VALUES or not bool(torch.isfinite(got).all()):
+        fail("align_face_batched on the card disagrees with the CPU")
+
+
+def phase_tp(cfg, card: str, dev) -> dict:
+    """Tensor parallelism on the card (see the module docstring); returns the
+    AR kernel's numbers on the ranks' eval ticks for the kernels line."""
+    import numpy as np
+
+    from lip2speech_torch.cli import train as train_cli
+
+    if str(dev) != "cpu":
+        import torch
+
+        torch.cuda.empty_cache()
+        align_check(dev, card)
+    with tempfile.TemporaryDirectory(prefix="lip2speech_tp_") as tmp:
+        t0 = time.time()
+        write_fixture(os.path.join(tmp, "lrw"))
+        print(f"tp: fixture in {time.time() - t0:.1f} s")
+        faults = []  # every result prints before the phase fails
+
+        # (a) the 1 x 2 grid against one rank
+        t0 = time.time()
+        ranks = run_ranks(TP_CHECK_GRID[0] * TP_CHECK_GRID[1], "tp_step", tmp, dev, cfg)
+        print(f"tp: (a) on a {TP_CHECK_GRID[0]} x {TP_CHECK_GRID[1]} grid over gloo on one card "
+              f"in {time.time() - t0:.1f} s (process start-up included)")
+        st = ranks[0]["tp_step"]
+        loss_rel = max(abs(g - w) / (DP_LOSS_RTOL * abs(w) + DP_LOSS_ATOL)
+                       for g, w in st["losses"].values())
+        norm_rel = {k: abs(g - w) / w for k, (g, w) in
+                    [("total", st["grad_norm"]), *st["part_norms"].items()]}
+        lr = cfg.train.learning_rate
+        caps = {"encoder": 50, "decoder": 2000}
+        print(f"tp step f32 B={DP_CHECK_B} on a 1 x 2 grid ({st['sharded']} kernels sharded) "
+              f"against one rank: total {st['losses']['total'][0]:.6f} / "
+              f"{st['losses']['total'][1]:.6f}, the losses at {loss_rel:.3f} of their tolerance; "
+              f"gradient norms rel " + ", ".join(f"{k} {v:.3e}" for k, v in norm_rel.items())
+              + f" (tol {DP_NORM_RTOL} each); statistics at {st['stats']:.3f} of their "
+              "tolerance; " + "; ".join(
+                  f"{part}: worst {p['worst']:.3e} (cap {2.5 * lr:.1e}), {p['bad']} of "
+                  f"{p['total']} entries over lr/20 (cap {max(10, p['total'] // caps[part])}), "
+                  f"sign {p['sign']:.5f}, L2 {p['l2']:.3e}" for part, p in st["params"].items())
+              + f"; the same step in f64: losses and gradient norms rel {st['f64']:.3e} "
+              f"(tol {TRAIN_F64_REL}); replicated tensors the same on both ranks: "
+              f"{all(r['tp_step']['same_on_ranks'] for r in ranks)} [{card}]")
+        if not all(r["tp_step"]["same_on_ranks"] for r in ranks) or st["sharded"] != 11:
+            faults.append("the grid's ranks hold different replicated tensors, or not 11 shards")
+        if loss_rel > 1.0 or st["stats"] > 1.0 or max(norm_rel.values()) > DP_NORM_RTOL or (
+                st["f64"] > TRAIN_F64_REL) or any(
+                p["worst"] > 2.5 * lr or p["bad"] > max(10, p["total"] // caps[part])
+                for part, p in st["params"].items()):
+            faults.append("the 1 x 2 grid's step disagrees with the one-rank step")
+        away = st["sharded_params"] // 2
+        print(f"tp step bf16 B={TRAIN_B} on a staged batch: one rank {st['one_ms']:.2f} ms, peak "
+              f"{st['one_peak_gib']:.3f} GiB; 1 x 2 grid (each rank all {TRAIN_B} rows) "
+              f"{ranks[0]['tp_step']['grid_ms']:.2f} / {ranks[1]['tp_step']['grid_ms']:.2f} ms, "
+              f"peak {st['grid_peak_gib']:.3f} / {ranks[1]['tp_step']['grid_peak_gib']:.3f} GiB "
+              f"a rank (reckoned: {away} parameters sharded away x 22 B = {away * 22 / 2**20:.1f} "
+              f"MiB less: f32 weight, gradient and three moments, and the bf16 copy); a forward's "
+              f"{st['n_gather']} all-gathers ({st['gather_mib']:.1f} MiB gathered) "
+              f"{st['gather_ms']:.2f} ms, a backward's {st['n_reduce']} model-group all-reduces "
+              f"({st['reduce_mib']:.1f} MiB) {st['reduce_ms']:.2f} ms [{card}]")
+
+        # (b) cli.train on a 2 x 2 grid, then one rank resumes from its checkpoint
+        t0 = time.time()
+        world = TP_CLI_GRID[0] * TP_CLI_GRID[1]
+        cli = [r["tp_cli"] for r in run_ranks(world, "tp_cli", tmp, dev, cfg)]
+        rows, evals = _step_rows(os.path.join(tmp, "run_tp"))
+        steps = [r["step"] for r in rows]
+        eval_batches = min(CLI_EVAL_BATCHES, -(-CLI_TEST_CLIPS // min(32, TRAIN_B)))
+        print(f"tp: (b) {world} ranks in {time.time() - t0:.1f} s (process start-up included)")
+        print(f"tp cli B={TRAIN_B} on a {TP_CLI_GRID[0]} x {TP_CLI_GRID[1]} grid "
+              f"({TRAIN_B // TP_CLI_GRID[0]} rows a rank): steps logged {steps}, "
+              f"{float(np.median([r['step_time'] * 1e3 for r in rows[1:]])):.2f} ms per step with "
+              f"the loader (median of steps 2-{TP_STEPS}), eval ESTOI {cli[0]['best']:.4f}; "
+              f"ar_decode launches by rank {[c['launches'] for c in cli]} for {eval_batches} eval "
+              f"batches; the bf16 step on a staged batch {[round(c['ms'], 2) for c in cli]} ms by "
+              f"rank [{card}]")
+        for r, c in enumerate(cli):
+            print(f"tp rank {r}: ar_decode on its eval rows: max|err| {c['k1']['err']:.3e}, kernel "
+                  f"{c['k1']['ms']:.3f} ms, plain {c['k1']['plain_ms']:.3f} ms, bound "
+                  f"{c['k1']['bound_ms']:.4f} ms [{card}]")
+        t0 = time.time()
+        one = train_cli.train(_cli_args(os.path.join(tmp, "lrw"), tmp, "tp", dev, "--max_iters",
+                                        str(TP_STEPS), "--eval_interval", "1000"), cfg)
+        same = state_hash(one["state"].model) == cli[0]["hash"]
+        print(f"tp resume on one rank from the grid's checkpoint at step {one['start_step']} in "
+              f"{time.time() - t0:.1f} s: the grid's gathered state bit for bit: {same} [{card}]")
+        if steps != list(range(1, TP_STEPS + 1)) or len(evals) != 1:
+            faults.append(f"the grid's metrics.jsonl holds steps {steps} and {len(evals)} eval "
+                          "records: not rank 0's alone")
+        if not all(math.isfinite(r["total"]) for r in rows):
+            faults.append("the grid's CLI logged a non-finite loss")
+        if any(c["launches"] != eval_batches for c in cli):
+            faults.append("a grid rank's eval tick did not launch the AR kernel once per batch")
+        if len({c["hash"] for c in cli}) != 1 or any(c["final"] != TP_STEPS for c in cli):
+            faults.append("the grid's ranks end with different gathered states (digests "
+                          f"{[c['hash'][:12] for c in cli]}, steps {[c['final'] for c in cli]})")
+        if not same or one["start_step"] != TP_STEPS:
+            faults.append("one rank did not resume the grid's checkpoint bit for bit")
+        if faults:
+            fail("; ".join(faults))
+        return {"launches": [c["launches"] for c in cli],
+                "err": max(c["k1"]["err"] for c in cli)}
+
 
 def main() -> int:
     if sys.argv[1:2] == ["--dp-rank"]:
@@ -2298,6 +2719,10 @@ def main() -> int:
         phase_dp(cfg, card, dev)
         print(card)
         return 0
+    if "--tp-only" in sys.argv[1:]:
+        phase_tp(cfg, card, dev)
+        print(card)
+        return 0
     results = phase_kernel(cfg, card, dev)
     launches = phase_pipeline(cfg, card, dev, profile=profile)
     phase_train(cfg, card, dev, profile=profile)
@@ -2308,6 +2733,7 @@ def main() -> int:
     phase_speaker(cfg, card, dev)
     phase_prep(card, dev)
     at_dp = phase_dp(cfg, card, dev)
+    at_tp = phase_tp(cfg, card, dev)
 
     at_main = results[(MAIN_B, "bfloat16")]
     kernels = [{
@@ -2351,6 +2777,11 @@ def main() -> int:
         # kernel against its plain version on a rank's eval rows (B=16, f32)
         "dp_eval_launches": at_dp["launches"],
         "dp_eval_max_abs_err": at_dp["err"],
+        # tensor parallelism (phase 12): launches in each rank's eval tick of
+        # the 2 x 2 grid's CLI run; the largest error of the kernel against
+        # its plain version on a rank's eval rows (B=16, f32)
+        "tp_eval_launches": at_tp["launches"],
+        "tp_eval_max_abs_err": at_tp["err"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,10 @@ reference ``.pth``, a checkpoint directory of this port
 config's seed; a path that is given but unusable raises.
 
 ``start_data_parallel`` joins the process group of a run launched by
-``torch.distributed.run`` (``parallel/dist.py``) and picks the rank's
-device; ``--dist_backend`` names the collectives' backend, as JAX's
-``jax_cpu_collectives_implementation`` does for its CPU collectives.
+``torch.distributed.run`` (``parallel/dist.py``), with the groups of its
+rank grid, and picks the rank's device; ``--dist_backend`` names the
+collectives' backend, as JAX's ``jax_cpu_collectives_implementation`` does
+for its CPU collectives.
 """
 
 from __future__ import annotations
@@ -48,12 +49,13 @@ def add_dist_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return p
 
 
-def start_data_parallel(args, required: bool = False):
+def start_data_parallel(args, required: bool = False, n_model: int = 1):
     """(the group of a data-parallel run or None, the device): a run under
     ``torch.distributed.run`` (``WORLD_SIZE`` > 1, or ``required``) joins
-    its group on ``cuda:{LOCAL_RANK}`` or the CPU; one process runs on
-    ``--device``."""
-    dp = pdist.init_from_env(args.device, getattr(args, "dist_backend", None), required)
+    its group, a grid of ``world / n_model`` x ``n_model`` ranks, on
+    ``cuda:{LOCAL_RANK}`` or the CPU; one process runs on ``--device``."""
+    dp = pdist.init_from_env(args.device, getattr(args, "dist_backend", None), required,
+                             n_model)
     return dp, (resolve_device(args.device) if dp is None else dp.device)
 
 

@@ -1,7 +1,7 @@
 """Training CLI.
 
 Counterpart of ``lip2speech_tpu/cli/train.py``, on one device or one
-process a device (data parallelism, below): the dataset, the AMSGrad train
+process a device (data and tensor parallelism, below): the dataset, the AMSGrad train
 step (``train/train_step.py``), resume from the newest checkpoint, the
 teacher-forcing anneal (+``tf_ratio_step`` every ``tf_ratio_epochs``
 epochs), the eval tick (``eval/evaluate.py``, whose
@@ -14,16 +14,24 @@ from a generator seeded by ``train.seed + 17``, at the start of every run,
 a resumed one too: it is not checkpointed. The rewind on a stall is
 refused with it, since the safety checkpoints would hold no critic.
 
-Data parallelism (``parallel/dist.py``): one process per device, launched
-by ``torch.distributed.run``, whose environment starts the group
-(``--multihost`` requires it). ``--batch_size`` is the global batch; each
-rank reads its rows (the loader's shard), runs the step on them and sums
-the gradients with the others, so every rank holds the same weights.
-``--data_parallel`` must be the world size (-1: every process).
-``--dist_backend`` picks the collectives: NCCL on CUDA and gloo on the CPU
-by default; gloo on CUDA lets several ranks share one card. Only rank 0
-writes checkpoints, logs and the console. Tensor parallelism
-(``--model_parallel`` above 1) is not ported yet: ROADMAP.md, item 15.
+Parallelism (``parallel/dist.py``): one process per device, launched by
+``torch.distributed.run``, whose environment starts the group
+(``--multihost`` requires it). The processes form a grid of
+``--data_parallel`` x ``--model_parallel`` ranks, whose size must be the
+world size (``--data_parallel -1``: the world over ``--model_parallel``).
+``--batch_size`` is the global batch; each rank reads its data index's rows
+(the loader's shard), runs the step on them and sums the gradients over
+its data group. With ``--model_parallel`` above 1 (tensor parallelism,
+``parallel/tensor.py``) the K/V conv banks and ``conv_last`` are sharded on
+their output channels over each model group, whose ranks hold the same
+rows (the group's first rank's batch, broadcast: each loader draws face
+crops and flips on its own); the critic of the adversarial mode stays
+replicated. Every rank of a model group holds the same replicated weights,
+checked at the end of a run, and a checkpoint holds the gathered ones in
+the one-rank format. ``--dist_backend`` picks the
+collectives: NCCL on CUDA and gloo on the CPU by default; gloo on CUDA lets
+several ranks share one card. Only rank 0 writes checkpoints, logs and the
+console.
 
 The loop reads metrics from the device only at log ticks, and, when
 rewinding is on, the previous step's ``notfinite_count`` each step.
@@ -31,6 +39,8 @@ rewinding is on, the previous step's ``notfinite_count`` each step.
 Usage: python -m lip2speech_torch.cli.train --dataset LRW --root ... [--device cuda]
        python -m torch.distributed.run --nproc_per_node 2 -m lip2speech_torch.cli.train \
            --dataset LRW --root ... [--device cpu --dist_backend gloo]
+       python -m torch.distributed.run --nproc_per_node 4 -m lip2speech_torch.cli.train \
+           --dataset LRW --root ... --data_parallel 2 --model_parallel 2
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from lip2speech_torch.data import FaceAugmentation, Loader, get_dataset
 from lip2speech_torch.data.collate import prepare_batch, to_device
 from lip2speech_torch.eval.evaluate import evaluate_net
 from lip2speech_torch.parallel import dist as pdist
+from lip2speech_torch.parallel import tensor
 from lip2speech_torch.train import checkpoint as ckpt
 from lip2speech_torch.train.adversarial import adversarial_train_step, init_critic
 from lip2speech_torch.train.logging_utils import MetricLogger, profile_steps
@@ -60,15 +71,16 @@ from lip2speech_torch.train.train_step import create_train_state, train_step
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         "lip2speech_torch train",
-        description="Train on one device, or data-parallel on the processes that "
-                    "torch.distributed.run launches (one per device). Tensor parallelism "
-                    "(--model_parallel above 1) is not ported yet: ROADMAP.md, item 15.")
+        description="Train on one device, or on a data x model grid of the processes "
+                    "that torch.distributed.run launches (one per device).")
     add_common_args(p)
     add_dist_args(p)
     p.add_argument("--data_parallel", type=int, default=-1,
-                   help="data-parallel size: the world size, or -1 for every process")
+                   help="the grid's data axis: the world size over --model_parallel, or -1 "
+                        "for that")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="tensor-parallel size; only 1 is ported (ROADMAP.md, item 15)")
+                   help="the grid's model axis: the tensor-parallel size over which the K/V "
+                        "conv banks and conv_last shard their output channels")
     p.add_argument("--multihost", action="store_true",
                    help="require the environment of torch.distributed.run (a WORLD_SIZE "
                         "above 1 starts the group without it)")
@@ -143,13 +155,10 @@ def train(args, cfg: Config | None = None) -> dict:
             "--rewind_on_stall is unsupported with train.adversarial=true: "
             "the rolling safety checkpoint does not include the critic "
             "params/optimizer. Disable one of the two.")
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--model_parallel {args.model_parallel}: tensor parallelism is not ported yet "
-            "(ROADMAP.md, item 15); run data-parallel with --model_parallel 1")
     batch_size = args.batch_size or tc.batch_size
-    pdist.data_parallel_size(args.data_parallel, pdist.env_world_size(), batch_size)
-    dp, device = start_data_parallel(args, required=args.multihost)
+    pdist.data_parallel_size(args.data_parallel, pdist.env_world_size(), batch_size,
+                             args.model_parallel)
+    dp, device = start_data_parallel(args, required=args.multihost, n_model=args.model_parallel)
     try:
         return _train(args, cfg, dp, device, batch_size)
     finally:
@@ -161,6 +170,8 @@ def _train(args, cfg: Config, dp, device, batch_size: int) -> dict:
     say = print if pdist.is_main(dp) else (lambda *a, **k: None)
     if dp is not None:
         say(f"data parallel: {dp.world} ranks over {dp.backend}, global batch {batch_size}")
+    if dp is not None and dp.n_model > 1:
+        say(f"tensor parallel: a grid of {dp.n_data} x {dp.n_model} ranks (data x model)")
     max_iters = args.max_iters or tc.max_iters
     eval_interval = args.eval_interval or tc.eval_interval
     log_interval = args.log_interval or tc.log_interval
@@ -178,6 +189,7 @@ def _train(args, cfg: Config, dp, device, batch_size: int) -> dict:
     steps_per_epoch = max(len(ds) // batch_size, 1)
 
     model, _ = load_model(cfg, args.finetune_model_path or args.model_path, device)
+    tensor.shard_(model, dp)
     state = create_train_state(cfg, model)
     start_it, best_score = 0, -1.0
     pdist.barrier(dp)  # every rank reads the same newest checkpoint
@@ -191,20 +203,23 @@ def _train(args, cfg: Config, dp, device, batch_size: int) -> dict:
     critic = (init_critic(cfg, torch.Generator().manual_seed(tc.seed + 17), device)
               if tc.adversarial else None)
     if dp is not None:
-        # the same weights, optimizer state, critic and shuffle on every rank
-        held = [*model.state_dict().values(), *state.opt.state_dict().values(),
-                torch.tensor([tc.seed, batch_size, start_it], device=device)]
+        # the same weights, optimizer state, critic and shuffle on every rank;
+        # the shards (and the moments, which hold them) on every data index
+        held, shards = tensor.state_parts(model)
+        opt = state.opt
+        held += [opt.count, opt.notfinite_count, opt.total_notfinite,
+                 torch.tensor([tc.seed, batch_size, start_it], device=device)]
         if critic is not None:
             held += list(critic.disc.state_dict().values())
-        if not pdist.same_on_all_ranks([t for t in held if torch.is_tensor(t)], dp):
+        if not pdist.same_on_all_ranks(held, dp, shards + [opt.mu, opt.nu, opt.nu_max]):
             raise RuntimeError("the ranks start from different weights, state or seeds")
 
     logger = MetricLogger(args.run_dir, enabled=pdist.is_main(dp))
     loader = Loader(ds, batch_size, cfg.data, shuffle=True, infinite=True,
                     num_workers=args.num_workers or min(batch_size, os.cpu_count() or 8),
                     seed=tc.seed, pin_memory=device.type == "cuda",
-                    shard_index=0 if dp is None else dp.rank,
-                    shard_count=1 if dp is None else dp.world)
+                    shard_index=0 if dp is None else dp.data_index,
+                    shard_count=1 if dp is None else dp.n_data)
     data_iter = iter(loader)
     staged = None
     it = start_it
@@ -263,7 +278,9 @@ def _train(args, cfg: Config, dp, device, batch_size: int) -> dict:
                 t0 = time.perf_counter()
             with profile_steps() if profiling else contextlib.nullcontext() as prof:
                 if staged is None:
-                    batch = prepare_batch(to_device(next(data_iter), device), cfg.audio, cfg.data)
+                    raw = to_device(next(data_iter), device)
+                    pdist.agree_over_model_group_(raw.values(), dp)  # the same rows, drawn once
+                    batch = prepare_batch(raw, cfg.audio, cfg.data)
                     batch.pop("audio"), batch.pop("audio_lengths")
                     if args.reuse_first_batch:
                         staged = batch
@@ -304,7 +321,7 @@ def _train(args, cfg: Config, dp, device, batch_size: int) -> dict:
                 score = evaluate_net(model, eval_ds, cfg, batch_size=min(32, batch_size),
                                      max_batches=args.eval_batches, dp=dp)
                 logger.scalars(it + 1, {"estoi": score}, prefix="eval/")
-                logger.histograms(it + 1, model.named_parameters())
+                logger.histograms(it + 1, tensor.full_named_parameters(model))
                 say(f"[{it + 1}] eval ESTOI {score:.4f} (best {best_score:.4f})")
                 if score > best_score:
                     best_score = score
@@ -325,6 +342,10 @@ def _train(args, cfg: Config, dp, device, batch_size: int) -> dict:
         data_iter.close()
         logger.close()
 
+    if dp is not None:
+        held, shards = tensor.state_parts(model)
+        if not pdist.same_on_all_ranks(held, dp, shards):
+            raise RuntimeError("the ranks end the run with different weights")
     # the final save, unless the eval tick just saved this step
     if last_saved_step != max_iters:
         ckpt.save_checkpoint(args.ckpt_dir, max_iters, state, {"best_score": best_score}, dp)

@@ -15,12 +15,15 @@ batch's Griffin-Lim phase from a generator seeded by (seed, batch index),
 unless the caller hands the phases in (``thetas``).
 
 Several processes (``dp``, JAX's ``evaluate.py:113-205``): when the batch
-divides among the ranks, each rank reads its rows of every batch (the
-loader's shard), pads its part of a ragged tail with its row 0, and scores
-its real rows; else every rank reads every batch. The draws of a rank's
-rows are the rows of the global batch's draws (``parallel.RowDraws``), and
-the score is the sum of every rank's scores over their count, the same on
-every rank.
+divides among the data indices, each rank reads its data index's rows of
+every batch (the loader's shard), pads its part of a ragged tail with its
+row 0, and scores its real rows; else every rank reads every batch. The
+draws of a rank's rows are the rows of the global batch's draws
+(``parallel.RowDraws``), and the score is the sum of the data group's
+scores over their count, the same on every rank. Under tensor parallelism
+the ranks of a model group decode the same rows (the group's first rank's
+batch: the readers draw face crops at random), each through the AR kernel,
+as GSPMD's replicated compute does, and are counted once.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from lip2speech_torch.data.collate import prepare_batch, to_device
 from lip2speech_torch.data.loader import Loader
 from lip2speech_torch.ops import estoi as estoi_ops
 from lip2speech_torch.ops.griffin_lim import mel_to_audio
-from lip2speech_torch.parallel.dist import DataParallel, RowDraws, all_reduce_
+from lip2speech_torch.parallel.dist import (DataParallel, RowDraws, agree_over_model_group_,
+                                            all_reduce_)
 from lip2speech_torch.train.train_step import cast_floats, step_generator
 
 
@@ -122,7 +126,7 @@ def evaluate_net(model: torch.nn.Module, dataset, cfg: Config, batch_size: int =
     device and ``prepare_batch``), ``forward_s``, ``griffin_lim_s``,
     ``metric_s`` (wall seconds of each batch), ``batches`` and this rank's
     per-clip ``scores``. Under ``dp`` every rank calls it and gets the mean
-    over every rank's clips (the module docstring)."""
+    over every data index's clips (the module docstring)."""
     assert metric in ("estoi", "stoi", "pesq"), metric
     from lip2speech_torch.eval.metrics import get_waveform_metric
 
@@ -133,10 +137,11 @@ def evaluate_net(model: torch.nn.Module, dataset, cfg: Config, batch_size: int =
     program = eval_program(model, cfg, n_gl_iters, "stoi" if metric == "stoi" else "estoi")
     weights = program.weights()
     # JAX's rule: shard the loader only when the batch splits evenly
-    shard = dp is not None and batch_size % dp.world == 0
+    shard = dp is not None and batch_size % dp.n_data == 0
     loader = Loader(dataset, batch_size, cfg.data, shuffle=False, drop_last=False,
                     num_workers=min(8, os.cpu_count() or 8), pin_memory=dev.type == "cuda",
-                    shard_index=dp.rank if shard else 0, shard_count=dp.world if shard else 1)
+                    shard_index=dp.data_index if shard else 0,
+                    shard_count=dp.n_data if shard else 1)
     local_batch = loader.local_batch_size
     clock = {"prepare_s": [], "forward_s": [], "griffin_lim_s": [], "metric_s": []}
     t = [time.perf_counter()]
@@ -161,7 +166,9 @@ def evaluate_net(model: torch.nn.Module, dataset, cfg: Config, batch_size: int =
         # where this rank's rows sit in the global batch, for its draws
         start = loader.shard_rows(min(batch_size, len(dataset) - bi * batch_size))[0]
         rows = (start, batch_size) if shard else None
-        batch = prepare_batch(to_device(raw, dev), cfg.audio, cfg.data)
+        on_dev = to_device(raw, dev)
+        agree_over_model_group_(on_dev.values(), dp)  # the face crops drawn once a model group
+        batch = prepare_batch(on_dev, cfg.audio, cfg.data)
         lap("prepare_s")
         mel = program.forward(batch, weights, seed, rows)["mel_postnet"]
         lap("forward_s")
@@ -185,9 +192,11 @@ def evaluate_net(model: torch.nn.Module, dataset, cfg: Config, batch_size: int =
     if stats is not None:
         stats.update(clock, batches=n_batches, scores=list(scores))
     if dp is not None:
-        # JAX's process_allgather of (sum, count), summed
+        # JAX's process_allgather of (sum, count), summed over the data group
         totals = torch.tensor([float(np.sum(scores)), float(len(scores))], dtype=torch.float64,
                               device=dp.device)
-        total, count = all_reduce_(totals, dp).tolist()
+        all_reduce_(totals, dp)
+        agree_over_model_group_([totals], dp)  # one score, so one decision, on every rank
+        total, count = totals.tolist()
         return total / max(count, 1.0)
     return float(np.mean(scores)) if scores else 0.0

@@ -47,6 +47,7 @@ from lip2speech_torch.models.layers import (
     lstm_cell_step,
     sinusoid_table,
 )
+from lip2speech_torch.parallel import tensor
 from lip2speech_torch.parallel.dist import uniform
 
 
@@ -84,17 +85,20 @@ def teacher_schedule(rand: torch.Tensor, tf_ratio) -> torch.Tensor:
 
 class MultiHopConv(nn.Module):
     """Conv bank k=1,3,7,11 (each + BN + SiLU) and a 1x1 bottleneck over
-    the concatenation with the input; (B, C, T) -> (B, features, T)."""
+    the concatenation with the input; (B, C, T) -> (B, features, T). The
+    five convs are column-parallel under tensor parallelism
+    (``parallel.tensor``)."""
 
     KERNELS = (1, 3, 7, 11)
 
     def __init__(self, channels: int, features: int):
         super().__init__()
         self.conv = nn.ModuleList(
-            nn.Sequential(nn.Conv1d(channels, channels, k, padding=k // 2), BatchNorm1d(channels))
+            nn.Sequential(tensor.Conv1d(channels, channels, k, padding=k // 2),
+                          BatchNorm1d(channels))
             for k in self.KERNELS
         )
-        self.bottleneck = nn.Conv1d(channels * (len(self.KERNELS) + 1), features, 1)
+        self.bottleneck = tensor.Conv1d(channels * (len(self.KERNELS) + 1), features, 1)
 
     def forward(self, x):
         return self.bottleneck(torch.cat([x] + [F.silu(m(x)) for m in self.conv], dim=1))

@@ -48,8 +48,9 @@ def clip_grad_norm(x: torch.Tensor, limit: float, dp: DataParallel | None = None
     """Identity whose backward rescales the cotangent to ``limit`` L2 norm
     over the whole tensor (``layers.py:23-55``): the norm is taken in (at
     least) f32, and a non-finite norm passes the cotangent through
-    unscaled. Under data parallelism (``dp``) the tensor is every rank's
-    rows, and the norm is taken over all of them."""
+    unscaled. Under data parallelism (``dp``) the tensor is every data
+    index's rows, and the norm is taken over all of them (over the data
+    group: the ranks of a model group hold the same rows)."""
     return _ClipGradNorm.apply(x, limit, dp)
 
 
@@ -109,7 +110,9 @@ class FlaxRuleBatchNorm(RankAware):
 
     Under data parallelism (``dp``, set by ``data_parallel``) the moments
     and the new statistics cover the global batch: each rank's (sum x,
-    sum x^2, count) is summed over the ranks, with its gradient."""
+    sum x^2, count) is summed over the data group, with its gradient (over
+    the world, a model group's identical rows would count ``n_model``
+    times, and the backward's sum would scale the gradient by it)."""
 
     new_stats: tuple[torch.Tensor, torch.Tensor] | None = None
 

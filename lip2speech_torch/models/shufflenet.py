@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from lip2speech_torch.models.layers import BatchNorm2d
+from lip2speech_torch.parallel import tensor
 
 STAGE_REPEATS = (4, 8, 4)
 
@@ -31,9 +32,8 @@ def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
     return x.view(b, groups, c // groups, h, w).transpose(1, 2).reshape(b, c, h, w)
 
 
-def _conv_bn(cin, cout, k, stride=1, groups=1):
-    return [nn.Conv2d(cin, cout, k, stride, k // 2, groups=groups, bias=False),
-            BatchNorm2d(cout)]
+def _conv_bn(cin, cout, k, stride=1, groups=1, conv=nn.Conv2d):
+    return [conv(cin, cout, k, stride, k // 2, groups=groups, bias=False), BatchNorm2d(cout)]
 
 
 class InvertedResidual(nn.Module):
@@ -67,7 +67,8 @@ class InvertedResidual(nn.Module):
 
 
 class ShuffleNetV2Trunk(nn.Sequential):
-    """(N, 24, H, W) -> (N, C_out): ``0`` = stages, ``1`` = conv_last."""
+    """(N, 24, H, W) -> (N, C_out): ``0`` = stages, ``1`` = conv_last, which
+    is column-parallel under tensor parallelism (``parallel.tensor``)."""
 
     def __init__(self, width_mult: float = 1.0):
         chans = WIDTH_CHANNELS[width_mult]
@@ -80,7 +81,8 @@ class ShuffleNetV2Trunk(nn.Sequential):
                 in_c = out_c
         super().__init__(
             nn.Sequential(*units),
-            nn.Sequential(*_conv_bn(in_c, chans[-1], 1), nn.ReLU(inplace=True)),
+            nn.Sequential(*_conv_bn(in_c, chans[-1], 1, conv=tensor.Conv2d),
+                          nn.ReLU(inplace=True)),
         )
 
     def forward(self, x):

@@ -7,7 +7,9 @@ pools over time; the trunk runs per frame on ``(B*T, C, H, W)``. Output is
 ``(B, T, C_video)``, L2-normalised per frame (reference video.py:85). In
 train mode its BatchNorms train by flax's rule (``layers.BatchNorm3d``,
 ``layers.BatchNorm2d``); the Conv3d on cuDNN computes the same function as
-the JAX package's time-tap fold, gradients included.
+the JAX package's time-tap fold, gradients included. Under tensor
+parallelism the trunk's ``conv_last`` is column-parallel
+(``parallel.tensor``).
 """
 
 from __future__ import annotations

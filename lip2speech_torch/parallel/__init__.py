@@ -1,2 +1,3 @@
-"""Data parallelism across processes in the PyTorch port: the data axis of
-``lip2speech_tpu/parallel`` (``dist.py``)."""
+"""Parallelism across processes in the PyTorch port: the rank grid and the
+data axis of ``lip2speech_tpu/parallel`` (``dist.py``), and its tensor
+parallelism (``tensor.py``)."""

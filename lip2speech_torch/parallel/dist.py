@@ -1,11 +1,21 @@
-"""Data parallelism across processes (PyTorch).
+"""Data parallelism across processes, and the rank grid (PyTorch).
 
-Counterpart of the data axis of ``lip2speech_tpu/parallel/mesh.py``, in
-PyTorch's idiom: one process per device, a ``torch.distributed`` process
-group, and the global batch split by rank into equal rows. The JAX package
-shards one global array over a ``Mesh`` and GSPMD inserts the collectives;
-here each rank holds its rows and the code reduces explicitly where a
-computation reads the whole batch:
+Counterpart of ``create_mesh``/``auto_mesh`` and the data axis of
+``lip2speech_tpu/parallel/mesh.py``, in PyTorch's idiom: one process per
+device, a ``torch.distributed`` process group, and the global batch split
+into equal rows. The JAX package shards one global array over a ``Mesh``
+and GSPMD inserts the collectives; here each rank holds its rows and the
+code reduces explicitly where a computation reads the whole batch.
+
+The ranks form a grid of ``n_data x n_model`` (``create_mesh``'s
+``devices.reshape(n_data, n_model)``): rank ``r = d * n_model + m`` has data
+index ``d`` and model index ``m``. The ranks of one model index form a
+*data group*, those of one data index a *model group*. The batch splits over
+the data index, so the ranks of a model group hold the same rows; tensor
+parallelism (``parallel/tensor.py``) shards weights over the model group.
+Every reduction over the batch below runs over the data group (the world
+when ``n_model`` is 1): over the world it would count a model group's rows
+``n_model`` times. Those reductions are:
 
 - the train-mode BatchNorm moments (``models/layers.FlaxRuleBatchNorm``),
   with their gradient (``all_reduce_sum``);
@@ -15,15 +25,16 @@ computation reads the whole batch:
 - the speaker step's contrastive batch (``all_gather_rows``);
 - the eval score (``eval/evaluate.py``).
 
-The contract is GSPMD's: a step on W ranks, with a global batch B split
-into W equal rows, computes the same step as one rank on the whole of B.
-So each rank's loss is its share of the global loss (the shares sum to
-it), and the gradients are summed over the ranks.
+The contract is GSPMD's: a step on ``n_data`` data indices, with a global
+batch B split into ``n_data`` equal rows, computes the same step as one
+rank on the whole of B. So each rank's loss is its share of the global loss
+(the shares sum to it over a data group), and the gradients are summed over
+the data group.
 
 Random draws. Every per-row draw is made at the global batch's shape from
-the step's generator, which every rank seeds alike, and each rank keeps its
-own rows (``RowDraws``, ``uniform``); a draw without a batch axis is the
-same on every rank.
+the step's generator, which every rank seeds alike, and each rank keeps the
+rows of its data index (``RowDraws``, ``uniform``), so the ranks of a model
+group draw alike; a draw without a batch axis is the same on every rank.
 
 A run with one process and no group passes ``dp=None`` everywhere and runs
 the single-device code as it is.
@@ -44,14 +55,36 @@ ENV_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 @dataclasses.dataclass(frozen=True)
 class DataParallel:
-    """This process's place in the data-parallel group (the default
-    process group): its ``rank`` of ``world``, its ``device`` and the
-    ``backend``."""
+    """This process's place in the process group (the default one): its
+    ``rank`` of ``world``, its ``device``, the ``backend``, and its place in
+    the ``n_data x n_model`` grid with the groups of the grid (``join_grid``):
+    ``data_group``, the ranks of its model index (None: the world, when
+    ``n_model`` is 1), and ``model_group``, the ranks of its data index
+    (None when ``n_model`` is 1). A copy is the same handle."""
 
     rank: int
     world: int
     device: torch.device
     backend: str
+    n_model: int = 1
+    data_group: object = dataclasses.field(default=None, compare=False, repr=False)
+    model_group: object = dataclasses.field(default=None, compare=False, repr=False)
+
+    @property
+    def n_data(self) -> int:
+        return self.world // self.n_model
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.n_model
+
+    def __deepcopy__(self, memo):
+        # the groups are handles of this process's communicators
+        return self
 
 
 def is_main(dp: DataParallel | None) -> bool:
@@ -74,17 +107,21 @@ def env_world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def data_parallel_size(requested: int, world: int, batch_size: int) -> int:
-    """The data-parallel size of a run of ``world`` processes, as
-    ``create_mesh`` rules on the data axis (``mesh.py:45-56``): -1 means
-    every process; any other value must be the world size, since a process
-    cannot sit idle as a device outside a mesh can. The global batch must
-    split into ``world`` equal rows."""
-    n = world if requested == -1 else requested
-    if n != world:
+def data_parallel_size(requested: int, world: int, batch_size: int, n_model: int = 1) -> int:
+    """The data axis ``n_data`` of a grid of ``world`` processes with
+    ``n_model`` on the model axis, as ``create_mesh``/``auto_mesh`` rule
+    (``mesh.py:21-57``): -1 means ``world / n_model``; ``n_data * n_model``
+    must be the world size, since a process cannot sit idle as a device
+    outside a mesh can. The global batch must split into ``n_data`` equal
+    rows."""
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"--model_parallel {n_model} does not divide the {world} processes")
+    n = world // n_model if requested == -1 else requested
+    if n * n_model != world:
         raise ValueError(
-            f"--data_parallel {requested} with {world} processes: the data-parallel size "
-            f"must be the world size (or -1); launch {n} processes to run {n} ranks")
+            f"--data_parallel {requested} x --model_parallel {n_model} with {world} processes: "
+            f"the grid's size must be the world size (or --data_parallel -1); launch "
+            f"{max(n, 0) * n_model} processes to run {n} x {n_model} ranks")
     if batch_size % n:
         raise ValueError(f"the global batch of {batch_size} does not split into {n} equal rows")
     return n
@@ -110,8 +147,30 @@ def _device_key(dev: torch.device) -> str:
     return f"{socket.gethostname()}/{getattr(props, 'uuid', dev.index)}"
 
 
+def join_grid(rank: int, world: int, device: torch.device, backend: str,
+              n_model: int = 1) -> DataParallel:
+    """This rank's place in the ``(world / n_model) x n_model`` grid of a
+    started process group, with the grid's groups. Every rank makes every
+    group (``dist.new_group`` is collective), in the same order."""
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"a model axis of {n_model} does not divide {world} ranks")
+    if n_model == 1:
+        return DataParallel(rank, world, device, backend)
+    n_data = world // n_model
+    data_group = model_group = None
+    for m in range(n_model):
+        group = dist.new_group([d * n_model + m for d in range(n_data)])
+        if rank % n_model == m:
+            data_group = group
+    for d in range(n_data):
+        group = dist.new_group([d * n_model + m for m in range(n_model)])
+        if rank // n_model == d:
+            model_group = group
+    return DataParallel(rank, world, device, backend, n_model, data_group, model_group)
+
+
 def init_from_env(device: str = "cuda", backend: str | None = None,
-                  required: bool = False) -> DataParallel | None:
+                  required: bool = False, n_model: int = 1) -> DataParallel | None:
     """Join the process group that ``torch.distributed.run`` describes in the
     environment (``init_method="env://"``), or return None for a run of one
     process. ``required`` (``--multihost``) raises when a variable is
@@ -121,7 +180,8 @@ def init_from_env(device: str = "cuda", backend: str | None = None,
     another type. The backend is NCCL on CUDA and gloo on the CPU unless
     ``backend`` names one (gloo on CUDA lets several ranks share a card).
     NCCL ranks that share a device raise before the first NCCL collective;
-    nothing changes backend on its own."""
+    nothing changes backend on its own. ``n_model`` is the grid's model
+    axis (``join_grid``)."""
     if not required and env_world_size() <= 1:
         return None
     missing = [k for k in ENV_VARS if k not in os.environ]
@@ -135,7 +195,6 @@ def init_from_env(device: str = "cuda", backend: str | None = None,
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError("the nccl backend needs --device cuda; use --dist_backend gloo on the CPU")
     dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world)
-    dp = DataParallel(rank, world, dev, backend)
     if backend == "nccl":
         # over a gloo group: an NCCL collective between ranks on one card hangs
         side = dist.new_group(backend="gloo")
@@ -148,7 +207,7 @@ def init_from_env(device: str = "cuda", backend: str | None = None,
             raise RuntimeError(
                 f"NCCL cannot run two ranks on one device ({', '.join(shared)} is shared by "
                 f"{world} ranks): give each rank its own card, or pass --dist_backend gloo")
-    return dp
+    return join_grid(rank, world, dev, backend, n_model)
 
 
 def shutdown(dp: DataParallel | None) -> None:
@@ -159,9 +218,10 @@ def shutdown(dp: DataParallel | None) -> None:
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
@@ -169,23 +229,24 @@ class _AllReduceSum(torch.autograd.Function):
         # d(sum over ranks of their shares)/dx_r: every rank's cotangent of
         # the sum reaches every rank's input
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def all_reduce_sum(x: torch.Tensor, dp: DataParallel | None) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, with its gradient; ``x`` itself
+    """The sum of ``x`` over the data group, with its gradient; ``x`` itself
     without a group."""
     if dp is None:
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, dp.data_group)
 
 
 @torch.no_grad()
 def all_reduce_(x: torch.Tensor, dp: DataParallel | None) -> torch.Tensor:
-    """Sum ``x`` over the ranks in place, with no gradient; returns ``x``."""
+    """Sum ``x`` over the data group in place, with no gradient; returns
+    ``x``."""
     if dp is not None:
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=dp.data_group)
     return x
 
 
@@ -193,8 +254,8 @@ class _AllGatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dp):
         ctx.dp = dp
-        parts = [torch.empty_like(x) for _ in range(dp.world)]
-        dist.all_gather(parts, x.contiguous())
+        parts = [torch.empty_like(x) for _ in range(dp.n_data)]
+        dist.all_gather(parts, x.contiguous(), group=dp.data_group)
         return torch.cat(parts)
 
     @staticmethod
@@ -202,14 +263,14 @@ class _AllGatherRows(torch.autograd.Function):
         # a reduce-scatter: this rank's rows of the summed cotangent
         dp = ctx.dp
         g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return local_rows(g, dp.rank, dp.world), None
+        dist.all_reduce(g, group=dp.data_group)
+        return local_rows(g, dp.data_index, dp.n_data), None
 
 
 def all_gather_rows(x: torch.Tensor, dp: DataParallel | None) -> torch.Tensor:
-    """Every rank's ``x`` (equal row counts) stacked in rank order along
+    """Every data index's ``x`` (equal row counts) stacked in order along
     dim 0, with its gradient: the backward sums the cotangent over the
-    ranks and keeps this rank's rows. ``x`` itself without a group."""
+    data group and keeps this rank's rows. ``x`` itself without a group."""
     if dp is None:
         return x
     return _AllGatherRows.apply(x, dp)
@@ -225,18 +286,46 @@ def local_rows(x: torch.Tensor, rank: int, world: int, dim: int = 0) -> torch.Te
 
 
 @torch.no_grad()
-def same_on_all_ranks(tensors, dp: DataParallel | None) -> bool:
-    """True when every rank holds ``tensors`` bit for bit as rank 0 does
-    (the same answer on every rank)."""
+def agree_over_model_group_(tensors, dp: DataParallel | None) -> None:
+    """Every tensor of ``tensors`` as the first rank of this rank's model
+    group holds it, in place (one broadcast for each dtype). The ranks of a
+    model group read the same rows, but each loader draws the random parts
+    of a sample (face crops, flips) on its own, and they compute their
+    replicated tensors alike but not bit for bit where an op's order of
+    summation is not fixed (threads on the CPU, atomics on the card); a
+    batch and what must stay the same on them are made so here. Nothing
+    without a model axis."""
+    if dp is None or dp.n_model == 1:
+        return
+    by_type: dict = {}
+    for t in tensors:
+        by_type.setdefault((t.dtype, t.device), []).append(t)
+    for parts in by_type.values():
+        flat = torch.cat([t.reshape(-1) for t in parts])
+        dist.broadcast(flat, src=dp.data_index * dp.n_model, group=dp.model_group)
+        torch._foreach_copy_(parts, [x.view_as(t) for x, t in
+                                     zip(flat.split([t.numel() for t in parts]), parts)])
+
+
+@torch.no_grad()
+def same_on_all_ranks(tensors, dp: DataParallel | None, shards=()) -> bool:
+    """True when every rank holds ``tensors`` (replicated) bit for bit as
+    rank 0 does, and ``shards`` (this model index's slices) as the first
+    rank of its data group does (the same answer on every rank)."""
     if dp is None:
         return True
-    tensors = list(tensors)
-    ok = torch.ones((), dtype=torch.int32, device=dp.device)
-    for t in tensors:
-        ref = t.detach().clone()
-        dist.broadcast(ref, src=0)
-        ok &= torch.equal(ref, t.detach())
-    flags = ok.reshape(1)
+    ok = True
+    for group, src, parts in ((None, 0, tensors), (dp.data_group, dp.model_index, shards)):
+        # every tensor's bytes in one buffer: one broadcast for the lot
+        mine = [t.detach().to(dp.device).contiguous().reshape(-1).view(torch.uint8)
+                for t in parts]
+        if not mine:
+            continue
+        mine = torch.cat(mine)
+        ref = mine.clone()
+        dist.broadcast(ref, src=src, group=group)
+        ok = torch.equal(ref, mine) and ok
+    flags = torch.tensor([int(ok)], dtype=torch.int32, device=dp.device)
     # a rank that differs sets 0 on every rank
     dist.all_reduce(flags, op=dist.ReduceOp.MIN)
     return bool(flags.item())
@@ -256,8 +345,8 @@ class RowDraws:
 
     @classmethod
     def for_rank(cls, generator: torch.Generator, dp: DataParallel, local_batch: int):
-        """Rank ``dp.rank``'s rows of ``dp.world`` equal shares."""
-        return cls(generator, dp.rank * local_batch, local_batch, dp.world * local_batch)
+        """The rows of ``dp``'s data index, of ``dp.n_data`` equal shares."""
+        return cls(generator, dp.data_index * local_batch, local_batch, dp.n_data * local_batch)
 
     def uniform(self, shape, device, batch_dim: int | None) -> torch.Tensor:
         if batch_dim is None:

@@ -35,9 +35,12 @@ Random draws: the step's two patches are inputs (``draws["patch_g"]``,
 
 Under data parallelism (``dp``) the critic is replicated as the generator
 is: its train-mode BatchNorm moments cover the global batch, its losses are
-the rank's shares, and its flat gradient vector is summed over the ranks
-before RMSprop reads it; the patches have no batch axis and are the same on
-every rank.
+the rank's shares, and its flat gradient vector is summed over the data
+group before RMSprop reads it; the patches have no batch axis and are the
+same on every rank. Under tensor parallelism the critic stays replicated,
+as JAX's (``lip2speech_tpu/cli/train.py:188``): the ranks of a model group
+hold the same rows and compute the same critic step, taking the group's
+first rank's gradient and new statistics.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ from lip2speech_torch.config import Config
 from lip2speech_torch.models.discriminator import Discriminator, sample_patch
 from lip2speech_torch.models.layers import FlaxRuleBatchNorm, data_parallel
 from lip2speech_torch.models.lip2speech import init_random_
-from lip2speech_torch.parallel.dist import DataParallel, all_reduce_, base_generator
+from lip2speech_torch.parallel.dist import (DataParallel, agree_over_model_group_, all_reduce_,
+                                            base_generator)
 from lip2speech_torch.train.losses import discriminator_loss, generator_loss, global_losses
 from lip2speech_torch.train.train_step import (TrainState, apply_update, backward,
                                                forward_losses, step_draws)
@@ -125,8 +129,9 @@ def critic_step(critic: CriticState, real_mel: torch.Tensor, fake_mel: torch.Ten
         d_loss = discriminator_loss(real_pred, fake_pred, dp)
         grads = torch.autograd.grad(d_loss, params)
         with torch.no_grad():
-            # summed over the ranks in the gradients' own type
+            # summed over the data group in the gradients' own type
             g = all_reduce_(critic.opt.flatten(grads, dtype=None), dp).float()
+            agree_over_model_group_([g, *(t for st in new_stats for t in st)], dp)
             d_loss = global_losses({"d": d_loss}, dp)["d"]
             ok = torch.isfinite(d_loss) & torch.isfinite(torch.sqrt(torch.sum(g * g)))
             u, nu = critic.opt.update(g)

@@ -13,6 +13,13 @@ checkpoints are not read here; parameters cross over through
 In a data-parallel run (``dp``) only rank 0 writes and deletes, and every
 rank waits for it before going on, so a rank that reads next finds the
 files in place.
+
+A checkpoint is independent of the layout, as orbax's global arrays are:
+under tensor parallelism every rank gathers its model group's shards of the
+parameters and of the optimizer's moments (``parallel.tensor``), rank 0
+writes them in the one-rank format, and a restore cuts each rank's slices
+from it (``shard_like``). So a checkpoint of a grid restores into one rank,
+and one rank's into a grid.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import re
 
 import torch
 
+from lip2speech_torch.parallel import tensor
 from lip2speech_torch.parallel.dist import barrier, is_main
 
 _STEP = re.compile(r"step_(\d+)\.pt")
@@ -33,15 +41,17 @@ def _path(ckpt_dir: str, step: int) -> str:
 
 def save_checkpoint(ckpt_dir: str, step: int, state, extra: dict | None = None, dp=None) -> str:
     """Write ``state`` (a ``TrainState``) as step ``step``; returns the path.
-    Under ``dp`` rank 0 writes and every rank waits for it."""
+    Under ``dp`` rank 0 writes and every rank waits for it; a sharded
+    state's shards are gathered first, on every rank."""
     path = _path(ckpt_dir, step)
+    model = {k: v for k, v in tensor.full_state_dict(state.model).items()
+             if not k.endswith("num_batches_tracked")}
+    optimizer = state.opt.state_dict()
     if not is_main(dp):
         barrier(dp)
         return path
     os.makedirs(ckpt_dir, exist_ok=True)
-    model = {k: v for k, v in state.model.state_dict().items()
-             if not k.endswith("num_batches_tracked")}
-    payload = {"model": model, "optimizer": state.opt.state_dict(), "step": int(state.step),
+    payload = {"model": model, "optimizer": optimizer, "step": int(state.step),
                "extra": dict(extra or {})}
     tmp = f"{path}.tmp-{os.getpid()}"
     torch.save(payload, tmp)
@@ -69,9 +79,9 @@ def prune_checkpoints(ckpt_dir: str, keep: int, dp=None) -> None:
 def restore_checkpoint(ckpt_dir: str, state=None, step: int | None = None):
     """Restore the newest checkpoint, or step ``step`` exactly. With
     ``state``, loads it in place (model with ``strict=True``, optimizer,
-    step) and returns ``(state, extra)``; without, returns ``(payload,
-    extra)``. Returns None when there is no checkpoint; a missing explicit
-    step raises ``FileNotFoundError``."""
+    step; a sharded state takes its slices) and returns ``(state, extra)``;
+    without, returns ``(payload, extra)``. Returns None when there is no
+    checkpoint; a missing explicit step raises ``FileNotFoundError``."""
     steps = available_steps(ckpt_dir)
     if not steps:
         return None
@@ -83,7 +93,7 @@ def restore_checkpoint(ckpt_dir: str, state=None, step: int | None = None):
                          map_location="cpu", weights_only=True)
     if state is None:
         return payload, payload["extra"]
-    state.model.load_state_dict(payload["model"], strict=True)
+    tensor.load_full_state_dict_(state.model, payload["model"])
     state.opt.load_state_dict(payload["optimizer"])
     state.step = payload["step"]
     return state, payload["extra"]

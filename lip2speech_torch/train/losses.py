@@ -7,10 +7,11 @@ content codebook's distribution against uniform; and the WGAN pair of
 critic's loss, the critic's weight clamp and the gradient penalty.
 
 Under data parallelism (``dp``) every loss is this rank's share of the
-global batch's loss, so that the shares sum over the ranks to it and the
-gradients are summed: a mean over the global batch's rows is the local
-rows' sum over the global count. ``global_losses`` sums the shares for the
-logged values, the same on every rank.
+global batch's loss, so that the shares sum over the data group to it and
+the gradients are summed: a mean over the global batch's rows is the local
+rows' sum over the global count. ``global_losses`` sums the shares over the
+data group for the logged values, the same on every rank (the ranks of a
+model group hold the same rows, so they are not summed).
 """
 
 from __future__ import annotations
@@ -25,13 +26,14 @@ from lip2speech_torch.parallel.dist import DataParallel, all_reduce_
 
 def share(loss: torch.Tensor, dp: DataParallel | None) -> torch.Tensor:
     """This rank's share of a mean over the global batch, from the mean
-    over its rows (every rank holds as many rows)."""
-    return loss if dp is None else loss / dp.world
+    over its rows (every data index holds as many rows)."""
+    return loss if dp is None else loss / dp.n_data
 
 
 def global_losses(losses: dict, dp: DataParallel | None) -> dict[str, torch.Tensor]:
     """The losses detached and, under data parallelism, summed over the
-    ranks in one collective: the global batch's values on every rank."""
+    data group in one collective: the global batch's values on every
+    rank."""
     out = {k: v.detach() for k, v in losses.items()}
     if dp is None:
         return out

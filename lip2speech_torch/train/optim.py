@@ -30,13 +30,27 @@ number of tensors, and the skip is a select on the device (no host sync).
 The update is added in place to the parameters themselves, which bumps
 their version counters: caches keyed by tensor version (the AR kernel's
 weight pack, ``Decoder._lstm_bias``) see the new weights.
+
+Under tensor parallelism (``tp``, ``parallel.tensor.layout``) the flat
+vectors hold this rank's shards of the sharded parameters, as
+``opt_state_shardings`` gives the JAX moments their parameters' shardings.
+The replicated entries of the gradient are taken as the model group's
+first rank has them (its ranks compute them alike, but not always bit for
+bit). The global norm is the replicated entries' square-sum plus the
+sharded entries' square-sum summed over the model group, and the finite
+check counts the non-finite entries over it too, so the clip, the skip and
+the update agree on every rank. ``state_dict`` and ``load_state_dict`` keep
+the one-rank layout (the shards gathered; a rank's slices cut).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from lip2speech_torch.config import TrainConfig
+from lip2speech_torch.parallel import tensor
+from lip2speech_torch.parallel.dist import agree_over_model_group_
 
 TRAINABLE_TOP = ("encoder", "decoder")
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -73,15 +87,22 @@ def all_finite(tensors) -> torch.Tensor:
 
 
 class AMSGrad:
-    """``make_optimizer``'s chain over ``named_params`` (name, parameter)."""
+    """``make_optimizer``'s chain over ``named_params`` (name, parameter);
+    ``tp`` = (the grid, the sharded names) of a tensor-parallel model."""
 
-    def __init__(self, cfg: TrainConfig, named_params):
+    def __init__(self, cfg: TrainConfig, named_params, tp=(None, ())):
         named = list(named_params)
         self.cfg = cfg
         self.names = [n for n, _ in named if is_optimised(n)]
         self.params = [p for n, p in named if is_optimised(n)]
         self.guarded = cfg.skip_nonfinite_updates or cfg.reject_grad_norm_above > 0.0
         dev = self.params[0].device
+        self.tp, sharded = tp
+        self.sharded = [n in sharded for n in self.names]
+        # the flat vectors' entries that belong to a shard (None: no shards)
+        self.shard_mask = None if not any(self.sharded) else torch.cat(
+            [torch.full((p.numel(),), s, dtype=torch.bool, device=dev)
+             for p, s in zip(self.params, self.sharded)])
         size = sum(p.numel() for p in self.params)
         self.mu = torch.zeros(size, device=dev)
         self.nu = torch.zeros(size, device=dev)
@@ -97,11 +118,26 @@ class AMSGrad:
                           for p, g in zip(self.params, grads)])
         return flat if dtype is None else flat.to(dtype)
 
-    def accepts(self, g: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
-        """0-d bool: the step is taken (steps 1 and 2 of the chain)."""
+    def norm_and_finite(self, g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """(the global norm of the flat gradient ``g``, 0-d bool: every entry
+        finite, or None without shards, where ``accepts`` reads ``g``); under
+        tensor parallelism both cover every rank's shards."""
+        if self.shard_mask is None:
+            return torch.sqrt(torch.sum(g * g)), None
+        sq = g * g
+        over_group = torch.stack([torch.sum(torch.where(self.shard_mask, sq, 0.0)),
+                                  (~torch.isfinite(g)).sum().to(sq.dtype)])
+        dist.all_reduce(over_group, group=self.tp.model_group)
+        norm = torch.sqrt(torch.sum(torch.where(self.shard_mask, 0.0, sq)) + over_group[0])
+        return norm, over_group[1] == 0
+
+    def accepts(self, g: torch.Tensor, norm: torch.Tensor,
+                finite: torch.Tensor | None = None) -> torch.Tensor:
+        """0-d bool: the step is taken (steps 1 and 2 of the chain);
+        ``finite`` is every entry's finiteness where ``g`` is a shard."""
         ok = torch.ones((), dtype=torch.bool, device=g.device)
         if self.guarded:
-            ok = torch.isfinite(g).all()
+            ok = torch.isfinite(g).all() if finite is None else finite
         if self.cfg.reject_grad_norm_above > 0.0:
             ok = ok & (norm <= self.cfg.reject_grad_norm_above)
         return ok
@@ -115,8 +151,13 @@ class AMSGrad:
         ``notfinite_count``; all 0-d tensors."""
         cfg = self.cfg
         g = grads if torch.is_tensor(grads) else self.flatten(grads)
-        norm = torch.sqrt(torch.sum(g * g))
-        ok = self.accepts(g, norm)
+        if self.shard_mask is not None:
+            # the replicated entries as the model group's first rank has them
+            rep = g[~self.shard_mask]
+            agree_over_model_group_([rep], self.tp)
+            g = g.masked_scatter(~self.shard_mask, rep)
+        norm, finite = self.norm_and_finite(g)
+        ok = self.accepts(g, norm, finite)
         # clip_by_global_norm: select(norm < clip, g, g / norm * clip)
         g = torch.where(norm < cfg.grad_clip, g, g / norm * cfg.grad_clip)
         mu = (1 - B1) * g + B1 * self.mu
@@ -142,13 +183,26 @@ class AMSGrad:
             out["notfinite_count"] = self.notfinite_count
         return out
 
+    MOMENTS = ("mu", "nu", "nu_max")
+
     def state_dict(self) -> dict:
-        return {"names": list(self.names), "mu": self.mu, "nu": self.nu, "nu_max": self.nu_max,
-                "count": self.count, "notfinite_count": self.notfinite_count,
-                "total_notfinite": self.total_notfinite}
+        """The state in the one-rank layout: under tensor parallelism the
+        moments' shards gathered over the model group (a collective)."""
+        out = {"names": list(self.names), "count": self.count,
+               "notfinite_count": self.notfinite_count, "total_notfinite": self.total_notfinite}
+        for k in self.MOMENTS:
+            v = getattr(self, k)
+            out[k] = v if self.shard_mask is None else tensor.gather_flat(
+                v, self.params, self.sharded, self.tp)
+        return out
 
     def load_state_dict(self, state: dict):
+        """Load a ``state_dict`` (one-rank layout); under tensor parallelism
+        each moment as this rank's slices of it."""
         if list(state["names"]) != self.names:
             raise ValueError("optimizer state is for other parameters")
-        for k in ("mu", "nu", "nu_max", "count", "notfinite_count", "total_notfinite"):
-            setattr(self, k, state[k].to(getattr(self, k).device).clone())
+        for k in (*self.MOMENTS, "count", "notfinite_count", "total_notfinite"):
+            v = state[k].to(getattr(self, k).device)
+            if k in self.MOMENTS and self.shard_mask is not None:
+                v = tensor.shard_flat(v, self.params, self.sharded, self.tp)
+            setattr(self, k, v.clone())

@@ -21,14 +21,24 @@ would have drawn. The JAX and torch streams never agree: a parity test
 hands both sides the same draws.
 
 Data parallelism (``dp``, ``parallel/dist.py``): each rank runs the step
-on its rows of the global batch. The per-row draws are made at the global
-shape from the step's generator and cut to the rank's rows
+on its data index's rows of the global batch. The per-row draws are made
+at the global shape from the step's generator and cut to those rows
 (``parallel.RowDraws``); the BatchNorm moments and the clipped cotangents'
 norms cover the global batch (``layers.data_parallel``); the losses are
 the rank's shares, logged as their sum; and the flat gradient vector is
-summed over the ranks, in the gradients' own type, before the optimizer
-reads it, so the guard, the norm and the update are the same on every
-rank.
+summed over the data group, in the gradients' own type, before the
+optimizer reads it, so the guard, the norm and the update are the same on
+every rank.
+
+Tensor parallelism (``parallel/tensor.py``): a model whose banks and
+``conv_last`` were sharded by ``tensor.shard_`` before
+``create_train_state`` runs them column-parallel over its model group. The
+ranks of a model group hold the same rows, so after the data group's sum a
+shard's gradient is complete and a replicated gradient is the same on every
+rank of the group up to the order of summation, and the model group's
+first rank's replicated gradients and new statistics are kept on all of
+them; the optimizer's norm sums the shards over the model group
+(``train/optim.py``).
 """
 
 from __future__ import annotations
@@ -43,7 +53,9 @@ from torch.profiler import record_function
 from lip2speech_torch.config import Config
 from lip2speech_torch.models.layers import FlaxRuleBatchNorm, data_parallel
 from lip2speech_torch.models.lip2speech import Lip2Speech
-from lip2speech_torch.parallel.dist import DataParallel, RowDraws, all_reduce_
+from lip2speech_torch.parallel import tensor
+from lip2speech_torch.parallel.dist import (DataParallel, RowDraws, agree_over_model_group_,
+                                            all_reduce_)
 from lip2speech_torch.train.losses import global_losses, lip2speech_loss
 from lip2speech_torch.train.optim import AMSGrad, all_finite, fold_lstm_biases_, is_trainable
 
@@ -72,9 +84,11 @@ class TrainState:
 
 def create_train_state(cfg: Config, model: Lip2Speech) -> TrainState:
     """The state of a run starting from ``model``, whose LSTM biases are
-    folded into ``bias_ih`` (``optim.fold_lstm_biases_``)."""
+    folded into ``bias_ih`` (``optim.fold_lstm_biases_``); the optimizer
+    keeps the shards of a model that ``tensor.shard_`` sharded."""
     fold_lstm_biases_(model)
-    return TrainState(model=model, opt=AMSGrad(cfg.train, model.named_parameters()))
+    return TrainState(model=model,
+                      opt=AMSGrad(cfg.train, model.named_parameters(), tensor.layout(model)))
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -164,7 +178,7 @@ def loss_and_grad(state: TrainState, batch: dict, tf_ratio, cfg: Config,
 
 def step_draws(seed: int, step: int, device, dp: DataParallel | None, local_batch: int):
     """The step's generator, ``step_generator(seed, step)``; under ``dp`` a
-    ``RowDraws`` over it for this rank's rows of the global batch."""
+    ``RowDraws`` over it for this data index's rows of the global batch."""
     gen = step_generator(seed, step, device)
     return gen if dp is None else RowDraws.for_rank(gen, dp, local_batch)
 
@@ -185,16 +199,18 @@ def apply_update(state: TrainState, cfg: Config, losses: dict, new_stats: dict,
                  grads, dp: DataParallel | None = None) -> dict[str, torch.Tensor]:
     """The guarded update from ``grads``, the new statistics kept only when
     it is taken, and one more step. Under ``dp`` the flat gradient vector is
-    summed over the ranks first. Returns the metrics: ``losses``,
+    summed over the data group first. Returns the metrics: ``losses``,
     ``grad_norm`` and, when updates are guarded, ``notfinite_count``."""
     with record_function("train.optimizer"):
-        # summed over the ranks in the gradients' own type (f32 under the bf16 policy)
+        # summed over the data group in the gradients' own type (f32 under the bf16 policy)
         with record_function("train.grad_all_reduce"):
             g = all_reduce_(state.opt.flatten(grads, dtype=None), dp).float()
         info = state.opt.step(g)
     stats = batch_norm_stats(state.model)
     with torch.no_grad(), record_function("train.batch_stats"):
-        for name, value in guard_batch_stats(cfg, info["ok"], new_stats, stats).items():
+        kept = guard_batch_stats(cfg, info["ok"], new_stats, stats)
+        agree_over_model_group_(kept.values(), dp)
+        for name, value in kept.items():
             stats[name].copy_(value)
     state.step += 1
     metrics = dict(losses)

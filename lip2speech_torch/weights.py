@@ -21,6 +21,8 @@ any tree of Dense, Conv and norm layers whose port modules keep the flax
 names (``models/audio_extras.py``, the speaker models), and
 ``speaker_training_from_flax`` the speaker-pretraining tree (face net,
 face decoder, temperature, and the frozen voice encoder).
+``rank_from_flax`` gives one rank's state dict of a tensor-parallel model
+(``from_flax``, then its slices of the sharded kernels).
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ import torch
 
 from lip2speech_torch.config import ModelConfig
 from lip2speech_torch.models.shufflenet import STAGE_REPEATS
+from lip2speech_torch.parallel.dist import local_rows
+from lip2speech_torch.parallel.tensor import partition_params
 
 T_LINEAR = "linear"
 T_CONV1 = "conv1"
@@ -251,6 +255,18 @@ def from_flax(variables: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
         else:
             put(tkey, _INV[code](val))
     return sd
+
+
+def rank_from_flax(variables: dict, cfg: ModelConfig, model_index: int,
+                   n_model: int) -> dict[str, torch.Tensor]:
+    """``from_flax`` for model index ``model_index`` of a model axis of
+    ``n_model``: every tensor that ``parallel.tensor.partition_params``
+    shards cut to this index's output channels (the state dict of a rank
+    after ``tensor.shard_``), the rest whole."""
+    sd = from_flax(variables, cfg)
+    sharded = partition_params({k: tuple(v.shape) for k, v in sd.items()}, n_model)
+    return {k: v if k not in sharded else
+            local_rows(v, model_index, n_model, sharded[k]).contiguous() for k, v in sd.items()}
 
 
 def critic_from_flax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:

@@ -5,13 +5,17 @@ LRW fixture (the settings of ``tests/test_torch_train_cli.py``).
 
 One launch of the two processes (killed after ``TIMEOUT_S``; the test then
 fails) calls the training CLI twice in each: 2 steps with an eval tick,
-then a resume to step 3; then ``cli.evaluate`` on the checkpoint. Only
-rank 0 writes the checkpoints, ``metrics.jsonl`` and the console (the
-evaluation's JSON line too), and both ranks resume from the step rank 0
-saved. The
-flags' refusals are checked in this process: a ``--data_parallel`` that is
-not the world size, ``--model_parallel`` above 1, ``--multihost`` without
-the launcher's environment, and NCCL on the CPU.
+then a resume to step 3; then ``cli.evaluate`` on the checkpoint; then the
+same two training calls on a 1 x 2 grid (``--model_parallel 2``: the K/V
+banks and ``conv_last`` sharded over the two ranks, which hold the same
+rows). Only rank 0 writes the checkpoints, ``metrics.jsonl`` and the
+console (the evaluation's JSON line too), and both ranks resume from the
+step rank 0 saved; the grid's checkpoint holds the whole tensors.
+``tests/test_torch_tensor_parallel.py`` holds the grid's numbers. The
+flags' refusals are checked in this process: a grid whose size is not the
+world size, a ``--model_parallel`` that does not divide it, a batch that
+does not split over the data axis, ``--multihost`` without the launcher's
+environment, and NCCL on the CPU.
 """
 
 from __future__ import annotations
@@ -67,11 +71,11 @@ def _env(rank: int, port: int) -> dict:
             "LOCAL_RANK": str(rank), "WORLD_SIZE": str(RANKS), "LOCAL_WORLD_SIZE": str(RANKS)}
 
 
-def _argv(root, tmp, *extra) -> list[str]:
+def _argv(root, tmp, *extra, run: str = "run", ckpt: str = "ckpt") -> list[str]:
     return ["--root", root, "--device", "cpu", "--dist_backend", "gloo", "--multihost",
             "--batch_size", str(BATCH), "--log_interval", "1", "--eval_batches", "1",
             "--num_workers", "2",
-            "--run_dir", os.path.join(tmp, "run"), "--ckpt_dir", os.path.join(tmp, "ckpt"),
+            "--run_dir", os.path.join(tmp, run), "--ckpt_dir", os.path.join(tmp, ckpt),
             *OVERRIDES, *extra]
 
 
@@ -84,15 +88,22 @@ def runs(tmp_path_factory):
     evaluate = ["--root", root, "--device", "cpu", "--dist_backend", "gloo", "--batch_size",
                 str(BATCH), "--gl_iters", "4", "--model_path", os.path.join(tmp, "ckpt"),
                 *OVERRIDES]
+    grid = dict(run="run_grid", ckpt="ckpt_grid")
     calls = [("train", _argv(root, tmp, "--max_iters", str(STEPS), "--eval_interval", str(STEPS))),
              ("train", _argv(root, tmp, "--max_iters", str(STEPS + 1), "--eval_interval", "1000")),
-             ("evaluate", evaluate)]
+             ("evaluate", evaluate),
+             ("train", _argv(root, tmp, "--model_parallel", "2", "--max_iters", str(STEPS),
+                             "--eval_interval", "1000", **grid)),
+             ("train", _argv(root, tmp, "--model_parallel", "2", "--max_iters", str(STEPS + 1),
+                             "--eval_interval", "1000", **grid))]
     calls = [(port, *call) for port, call in zip(_free_ports(len(calls)), calls)]
     outs = launch([[sys.executable, "-c", BOOT, json.dumps(calls)] for _ in range(RANKS)],
                   {r: _env(r, 1) for r in range(RANKS)}, timeout=TIMEOUT_S)
-    with open(os.path.join(tmp, "run", "metrics.jsonl")) as f:
-        rows = [json.loads(line) for line in f]
-    return {"tmp": tmp, "outs": outs, "rows": rows}
+    rows = {}
+    for run in ("run", "run_grid"):
+        with open(os.path.join(tmp, run, "metrics.jsonl")) as f:
+            rows[run] = [json.loads(line) for line in f]
+    return {"tmp": tmp, "outs": outs, "rows": rows["run"], "grid_rows": rows["run_grid"]}
 
 
 def test_only_rank_zero_writes(runs):
@@ -103,7 +114,7 @@ def test_only_rank_zero_writes(runs):
     rank0, rank1 = runs["outs"]
     assert "data parallel: 2 ranks over gloo, global batch 4" in rank0
     assert "[2] eval ESTOI" in rank0
-    for line in ("data parallel", "ESTOI", "resumed", "[1] "):
+    for line in ("data parallel", "tensor parallel", "ESTOI", "resumed", "[1] "):
         assert line not in rank1
 
 
@@ -125,11 +136,36 @@ def _rank0_env(monkeypatch, world: int):
     monkeypatch.setenv("WORLD_SIZE", str(world))
 
 
+def test_grid_trains_and_resumes(runs):
+    """The 1 x 2 grid's two calls (no eval tick: the grid's evaluation is held
+    in ``tests/test_torch_tensor_parallel.py``): one record a step, both
+    ranks resume at the step rank 0 saved, and the checkpoint holds the
+    sharded kernels whole (the one-rank format)."""
+    assert [r["step"] for r in runs["grid_rows"] if "total" in r] == [1, 2, 3]
+    assert all(np.isfinite(r["total"]) for r in runs["grid_rows"] if "total" in r)
+    rank0 = runs["outs"][0]
+    assert "tensor parallel: a grid of 1 x 2 ranks (data x model)" in rank0
+    assert rank0.count("resumed at step 2") == 2
+    payload = torch.load(os.path.join(runs["tmp"], "ckpt_grid", "step_3.pt"), weights_only=True)
+    width = SMALL["ffn_hidden_dim"]
+    assert payload["step"] == STEPS + 1
+    for bank in ("K", "V"):
+        assert payload["model"][f"decoder.{bank}.0.bottleneck.weight"].shape[0] == width
+        assert payload["model"][f"decoder.{bank}.0.conv.3.0.weight"].shape[0] == width
+    assert payload["model"]["encoder.trunk.1.0.weight"].shape[0] == 768
+    n = sum(v.numel() for k, v in payload["model"].items() if k.startswith(("encoder.", "decoder."))
+            and ".bias_hh_" not in k and not k.endswith(("running_mean", "running_var",
+                                                         "num_batches_tracked")))
+    assert payload["optimizer"]["mu"].numel() == n
+
+
 @pytest.mark.parametrize("flags, error, words", [
     (["--data_parallel", "3"], ValueError, "must be the world size"),
-    (["--model_parallel", "2"], NotImplementedError, "item 15"),
+    (["--data_parallel", "2", "--model_parallel", "2"], ValueError,
+     "grid's size must be the world"),
     (["--batch_size", "3"], ValueError, "does not split into 2"),
     (["--dist_backend", "nccl"], ValueError, "nccl backend needs --device cuda"),
+    (["--model_parallel", "3"], ValueError, "--model_parallel 3 does not divide the 2 processes"),
 ])
 def test_flags_that_raise(monkeypatch, tmp_path, flags, error, words):
     """Each raises before the process joins a group (none would form: the
@@ -137,6 +173,16 @@ def test_flags_that_raise(monkeypatch, tmp_path, flags, error, words):
     _rank0_env(monkeypatch, RANKS)
     args = train_cli.parse_args(["--root", str(tmp_path), "--device", "cpu", *flags])
     with pytest.raises(error, match=words):
+        train_cli.train(args)
+
+
+def test_grid_batch_must_split_over_the_data_axis(monkeypatch, tmp_path):
+    """On 8 processes, ``--model_parallel 2`` leaves a data axis of 4, which a
+    batch of 6 does not split into."""
+    _rank0_env(monkeypatch, 8)
+    args = train_cli.parse_args(["--root", str(tmp_path), "--device", "cpu", "--model_parallel",
+                                 "2", "--batch_size", "6"])
+    with pytest.raises(ValueError, match="does not split into 4"):
         train_cli.train(args)
 
 

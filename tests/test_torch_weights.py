@@ -129,6 +129,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import lip2speech_torch.utils, lip2speech_torch.utils.logger\n"
         "import lip2speech_torch.utils.devtime\n"
         "import lip2speech_torch.parallel, lip2speech_torch.parallel.dist\n"
+        "import lip2speech_torch.parallel.tensor, lip2speech_torch.ops.image\n"
         "import lip2speech_torch.models.layers, lip2speech_torch.models.decoder\n"
         "import lip2speech_torch.ops.griffin_lim, lip2speech_torch.train.logging_utils\n"
         "import lip2speech_torch.data.loader, lip2speech_torch.cli.common\n"
