@@ -136,6 +136,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    Checks: the step within the bounds, one kernel launch a rank per eval
    batch, rank 0's records alone, the same digest on every rank, finite
    losses, the resume.
+13. the port's last public surface on the card: ``models.get_network`` at
+   full width (random weights from the seed) against ``Lip2Speech`` built
+   from the same generator, one B=4 bf16 request each through the AR kernel
+   (the mels bit for bit, one launch a network), and the kernel against its
+   plain version on that request; ``ops.stft.istft(stft(x))`` at n_fft 1024
+   and hop 256 on 16 one-second clips, against the CPU (``STFT_REL``) and x
+   (``ROUND_TRIP_TOL``); ``ops.image.resize_bilinear`` of a (64, 29, 96, 96,
+   3) video to 88x88 and 160x160 in f32 and bf16 against the CPU
+   (``RESIZE_TOL``), and to its own size bit for bit;
+   ``cli.common.common_config`` with ``--override mesh.model_parallel=1``.
 
 Timings print with the card's name and power limit. The line before the
 last is a JSON object listing each kernel; the last line is
@@ -144,7 +154,7 @@ beside this file, it exits non-zero and prints no result.
 
 Usage: python3 chip_smoke.py [--profile | --kernel-only | --train-only | --cli-only |
                               --adv-only | --demo-only | --corpora-only | --speaker-only |
-                              --prep-only | --dp-only | --tp-only]
+                              --prep-only | --dp-only | --tp-only | --api-only]
 
 ``--profile`` adds, for each timed batch and for a train step, the device
 time by kernel of one batch (torch.profiler) and the device's idle share.
@@ -153,8 +163,9 @@ per-stage times) and prints no result line; ``--train-only`` runs phases 1
 and 4, ``--cli-only`` phases 1 and 5, ``--adv-only`` phases 1 and 6 and
 ``--demo-only`` phases 1 and 7, ``--corpora-only`` phases 1 and 8 and
 ``--speaker-only`` phases 1 and 9, ``--prep-only`` phases 1 and 10, ``--dp-only``
-phases 1 and 11, ``--tp-only`` phases 1 and 12, and none of them prints a
-result line. ``--dp-rank`` is the entry of one rank of phases 11 and 12.
+phases 1 and 11, ``--tp-only`` phases 1 and 12, ``--api-only`` phases 1 and
+13, and none of them prints a result line. ``--dp-rank`` is the entry of one
+rank of phases 11 and 12.
 """
 
 from __future__ import annotations
@@ -304,6 +315,18 @@ TP_CHECK_GRID, TP_CLI_GRID, TP_STEPS = (1, 2), (2, 2), 3
 # ALIGN_TOL, but for at most ALIGN_EDGE_VALUES values whose sampling position
 # lies within rounding of the image's edge (inside on one side only)
 ALIGN_TOL, ALIGN_EDGE_VALUES = 1e-2, 60
+
+# phase 13: istft(stft(x)) on SURFACE_CLIPS one-second clips of unit-variance
+# noise at n_fft 1024, hop 256, the card against the CPU within STFT_REL of
+# the largest value (the CPU tests hold both against JAX within 1e-5) and
+# against x within ROUND_TRIP_TOL (1.2e-06 measured on the CPU at n_fft 512)
+SURFACE_CLIPS, SURFACE_SAMPLES = 16, 16000
+STFT_REL, ROUND_TRIP_TOL = 1e-5, 1e-4
+# resize_bilinear of a (RESIZE_B, T, 96, 96, 3) video on [0, 1] to each size,
+# the card against the CPU: f32 within the CPU tests' bound against JAX; bf16
+# is resized in f32 and rounded, so within one bf16 step below 1
+RESIZE_B, RESIZE_SIZES = 64, (88, 160)
+RESIZE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
 
 
 def fail(msg: str):
@@ -919,11 +942,12 @@ def _step_rows(run_dir: str) -> tuple[list[dict], list[dict]]:
 
 def encode_rows(model, batch, dev) -> tuple[dict, dict, object]:
     """(the AR loop's parameters, the decoder's encoded inputs, the BOS rows)
-    of a prepared eval batch, in eval mode with the model's f32 weights.
-    A tensor-parallel model runs its banks' collectives here."""
+    of a prepared eval batch (or a request's ``video`` and ``faces``), in
+    eval mode with the model's weights. A tensor-parallel model runs its
+    banks' collectives here."""
     import torch
 
-    B = batch["mel"].shape[0]
+    B = batch["video"].shape[0]
     model.eval()
     with torch.no_grad():
         feats = model.encoder(batch["video"])
@@ -942,29 +966,34 @@ def ar_decode_on_rows(cfg, model, batch, dev, label: str, card: str) -> dict:
     return ar_decode_check(cfg, p, enc, bos, batch["mel"].shape[-1], dev, label, card)
 
 
-def ar_decode_check(cfg, p, enc, bos, M: int, dev, label: str, card: str) -> dict:
-    """``ar_decode_on_rows`` on the encoded inputs (``encode_rows``)."""
+def ar_decode_check(cfg, p, enc, bos, M: int, dev, label: str, card: str,
+                    wd=None) -> dict:
+    """``ar_decode_on_rows`` on the encoded inputs (``encode_rows``), with
+    weights of type ``wd`` (f32 by default; bf16 within ``TOL['bfloat16']``
+    and the lengths within ``lengths_check``)."""
     import torch
 
     from lip2speech_torch.kernels import ar_decode as ar
 
+    wd = wd or torch.float32
+    name = str(wd).split(".")[-1]
     B = bos.shape[0]
     with torch.no_grad():
-        f32 = torch.float32
-        ref = ar.ar_decode_reference(cfg.model, p, enc, bos, M, f32)
-        got = ar.ar_decode_cuda(cfg.model, p, enc, bos, M, f32)
+        ref = ar.ar_decode_reference(cfg.model, p, enc, bos, M, wd)
+        got = ar.ar_decode_cuda(cfg.model, p, enc, bos, M, wd)
         torch.cuda.synchronize(dev)
         errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
-        ms = cuda_ms(lambda: ar.ar_decode_cuda(cfg.model, p, enc, bos, M, f32), reps=5)
-        plain = cuda_ms(lambda: ar.ar_decode_reference(cfg.model, p, enc, bos, M, f32), reps=1)
+        len_ok = lengths_check(ref[1], got[1], cfg.model.gate_threshold)[0]
+        ms = cuda_ms(lambda: ar.ar_decode_cuda(cfg.model, p, enc, bos, M, wd), reps=5)
+        plain = cuda_ms(lambda: ar.ar_decode_reference(cfg.model, p, enc, bos, M, wd), reps=1)
     flops, nbytes = ar_decode_work(cfg.model, B, enc["k"].shape[1], enc["content_key"].shape[1],
-                                   M, 4)
-    bms, by = bound_ms(flops, nbytes, "float32")
-    print(f"ar_decode on {label} (B={B}, T={enc['k'].shape[1]}, M={M}, f32): max|err| mel "
+                                   M, 2 if wd == torch.bfloat16 else 4)
+    bms, by = bound_ms(flops, nbytes, name)
+    print(f"ar_decode on {label} (B={B}, T={enc['k'].shape[1]}, M={M}, {name}): max|err| mel "
           f"{errs[0]:.3e} stop "
-          f"{errs[1]:.3e} attn {errs[2]:.3e} (tol {TOL['float32']}); kernel {ms:.3f} ms, plain "
+          f"{errs[1]:.3e} attn {errs[2]:.3e} (tol {TOL[name]}); kernel {ms:.3f} ms, plain "
           f"{plain:.3f} ms, bound {bms:.4f} ms ({by}) [{card}]")
-    if any(e > t for e, t in zip(errs, TOL["float32"])) or not all(
+    if any(e > t for e, t in zip(errs, TOL[name])) or not len_ok or not all(
             bool(torch.isfinite(g).all()) for g in got):
         fail(f"the AR kernel disagrees with its plain version on {label}")
     return {"err": max(errs), "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
@@ -2660,6 +2689,99 @@ def phase_tp(cfg, card: str, dev) -> dict:
                 "err": max(c["k1"]["err"] for c in cli)}
 
 
+def phase_surface(cfg, card: str, dev) -> dict:
+    """Phase 13, the port's last public surface on the card (see the module
+    docstring); returns the AR kernel's launches and its error on the
+    network's request for the kernels line."""
+    import argparse
+
+    import torch
+
+    from lip2speech_torch import default_config
+    from lip2speech_torch.cli import common as cli_common
+    from lip2speech_torch.kernels import ar_decode as ar
+    from lip2speech_torch.models import Lip2Speech, get_network
+    from lip2speech_torch.models.lip2speech import init_random_
+    from lip2speech_torch.ops import image
+    from lip2speech_torch.ops import stft as stft_ops
+
+    # (a) get_network against Lip2Speech, one B=MAIN_B bf16 request each
+    bf16 = torch.bfloat16
+    nets = [init_random_(build(cfg.model), torch.Generator().manual_seed(SEED)).to(dev, bf16)
+            for build in (get_network, Lip2Speech)]
+    gen = torch.Generator().manual_seed(SEED + 13)
+    video, faces = make_request(cfg, MAIN_B, gen, "cpu", bf16)
+    S = max(1, cfg.data.max_video_frames // 7)
+    u = torch.rand(MAIN_B * S, cfg.model.content_vocab_size, generator=gen)
+    gumbel = -torch.log(-torch.log(u.clamp(min=1e-30)))
+    video, faces, gumbel = video.to(dev), faces.to(dev), gumbel.to(dev)
+    ar.launches = 0
+    outs = [net(video, faces, gumbel=gumbel, generator=torch.Generator(device=dev).manual_seed(SEED))
+            for net in nets]
+    torch.cuda.synchronize(dev)
+    launches = ar.launches
+    same = all(torch.equal(outs[0][k], outs[1][k]) for k in ("mel", "mel_postnet", "gate", "lengths"))
+    mel = outs[0]["mel_postnet"]
+    print(f"surface: get_network(cfg) B={MAIN_B} bf16 on {mel.device}: mel_postnet "
+          f"{tuple(mel.shape)}, lengths {outs[0]['lengths'].tolist()}, ar_decode launches "
+          f"{launches} (one a network), bit-equal to Lip2Speech(cfg): {same}")
+    if mel.device.type != dev.type or not bool(torch.isfinite(mel.float()).all()):
+        fail("get_network's request did not run on the card or is not finite")
+    if launches != len(nets) or not same:
+        fail(f"get_network: {launches} kernel launches, bit-equal to Lip2Speech {same}")
+    p, enc, bos = encode_rows(nets[0], {"video": video, "faces": faces}, dev)
+    k1 = ar_decode_check(cfg, p, enc, bos, cfg.model.max_decoder_steps, dev,
+                         "get_network's request", card, bf16)
+
+    # (b) istft(stft(x)) on the card against the CPU and against x
+    n_fft, hop = cfg.audio.n_fft, cfg.audio.hop_length
+    x = torch.randn(SURFACE_CLIPS, SURFACE_SAMPLES, generator=gen)
+
+    def round_trip(x):
+        spec = stft_ops.stft(x, n_fft, hop)
+        return stft_ops.istft(spec, n_fft, hop, length=x.shape[-1])
+
+    want = round_trip(x)
+    xd = x.to(dev)
+    got = round_trip(xd)
+    rel = float((got.cpu() - want).abs().max() / want.abs().max())
+    back = float((got.cpu() - x).abs().max())
+    ms = cuda_ms(lambda: round_trip(xd), reps=5)
+    print(f"surface: istft(stft(x)) {SURFACE_CLIPS}x{SURFACE_SAMPLES} samples, n_fft {n_fft}, "
+          f"hop {hop} on {got.device}: card vs CPU {rel:.3e} of the largest (tol {STFT_REL}), "
+          f"max|y - x| {back:.3e} (tol {ROUND_TRIP_TOL}); {ms:.3f} ms [{card}]")
+    if got.device.type != dev.type or rel > STFT_REL or back > ROUND_TRIP_TOL:
+        fail("istft(stft(x)) on the card disagrees with the CPU or with x")
+
+    # (c) resize_bilinear of a video batch, card against CPU, f32 and bf16
+    T, (h, w) = cfg.data.max_video_frames, cfg.data.mouth_size
+    clips = torch.rand(RESIZE_B, T, h, w, 3, generator=gen)
+    for dt in (torch.float32, bf16):
+        name = str(dt).split(".")[-1]
+        host, vd = clips.to(dt), clips.to(dev, dt)
+        if not torch.equal(image.resize_bilinear(vd, h, w), vd):
+            fail(f"resize_bilinear to the same size changed the {name} video")
+        for size in RESIZE_SIZES:
+            got = image.resize_bilinear(vd, size, size)
+            want = image.resize_bilinear(host, size, size)
+            err = float((got.cpu().float() - want.float()).abs().max())
+            ms = cuda_ms(lambda: image.resize_bilinear(vd, size, size), reps=5)
+            print(f"surface: resize_bilinear ({RESIZE_B}, {T}, {h}, {w}, 3) -> {size}x{size} "
+                  f"{name} on {got.device}: max|card - CPU| {err:.3e} (tol {RESIZE_TOL[name]}); "
+                  f"{ms:.3f} ms [{card}]")
+            if got.device.type != dev.type or got.dtype != dt or err > RESIZE_TOL[name]:
+                fail(f"resize_bilinear {name} to {size} on the card disagrees with the CPU")
+
+    # (d) the CLIs' config with --override mesh.*
+    args = cli_common.add_common_args(argparse.ArgumentParser()).parse_args(
+        ["--root", ROOT, "--override", "mesh.model_parallel=1"])
+    got_cfg = cli_common.common_config(args)
+    print(f"surface: cli.common.common_config --override mesh.model_parallel=1 -> {got_cfg.mesh}")
+    if got_cfg.mesh.model_parallel != 1 or got_cfg != default_config():
+        fail("--override mesh.model_parallel=1 did not give the default config")
+    return {"launches": launches, "err": k1["err"]}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-rank"]:
         return dp_rank(*sys.argv[2:5])
@@ -2723,6 +2845,10 @@ def main() -> int:
         phase_tp(cfg, card, dev)
         print(card)
         return 0
+    if "--api-only" in sys.argv[1:]:
+        phase_surface(cfg, card, dev)
+        print(card)
+        return 0
     results = phase_kernel(cfg, card, dev)
     launches = phase_pipeline(cfg, card, dev, profile=profile)
     phase_train(cfg, card, dev, profile=profile)
@@ -2734,6 +2860,7 @@ def main() -> int:
     phase_prep(card, dev)
     at_dp = phase_dp(cfg, card, dev)
     at_tp = phase_tp(cfg, card, dev)
+    at_surface = phase_surface(cfg, card, dev)
 
     at_main = results[(MAIN_B, "bfloat16")]
     kernels = [{
@@ -2782,6 +2909,11 @@ def main() -> int:
         # its plain version on a rank's eval rows (B=16, f32)
         "tp_eval_launches": at_tp["launches"],
         "tp_eval_max_abs_err": at_tp["err"],
+        # the public surface (phase 13): launches of get_network's and
+        # Lip2Speech's B=4 bf16 requests; the kernel against its plain
+        # version on that request (bf16, M=300)
+        "surface_launches": at_surface["launches"],
+        "surface_max_abs_err": at_surface["err"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

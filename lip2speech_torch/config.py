@@ -2,8 +2,12 @@
 
 The port's own copy of the dataclasses that ``lip2speech_tpu/config.py``
 defines, with the same defaults, so one ``Config`` value describes the same
-model to both packages. The sections the port reads are kept: audio,
-model, data and train.
+model to both packages: audio, model, data, train and mesh.
+
+The mesh section is inert in both packages: nothing reads ``cfg.mesh``. It
+is kept so that ``--override mesh.*`` means the same to both packages'
+CLIs; the port's rank grid comes from ``--data_parallel`` and
+``--model_parallel`` (``lip2speech_torch/parallel/dist.py``, ``tensor.py``).
 """
 
 from __future__ import annotations
@@ -124,11 +128,31 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh's layout in the JAX package (``config.py:186-198``);
+    read by neither package (the rank grid comes from the CLIs' flags)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    # -1 = all remaining devices on the data axis
+    data_parallel: int = -1
+    model_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     audio: AudioConfig = dataclasses.field(default_factory=AudioConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def default_config() -> Config:
+    return Config()
 
 
 def config_with_overrides(*overrides: str) -> Config:

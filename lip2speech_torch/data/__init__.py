@@ -3,6 +3,7 @@ threaded loader, the synthetic fixtures and batch assembly."""
 
 from lip2speech_torch.config import DataConfig
 from lip2speech_torch.data.augmentation import FaceAugmentation  # noqa: F401
+from lip2speech_torch.data.collate import collate, prepare_batch  # noqa: F401
 from lip2speech_torch.data.fixtures import (make_sample_avspeech_face,  # noqa: F401
                                             make_sample_lrw, make_sample_streaming,
                                             make_sample_wild)

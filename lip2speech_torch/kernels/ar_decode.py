@@ -40,7 +40,6 @@ import torch
 
 from lip2speech_torch.config import ModelConfig
 from lip2speech_torch.kernels import build
-from lip2speech_torch.models.layers import lstm_cell_step, sinusoid_table
 
 SOURCE = "ar_decode.cu"
 
@@ -72,6 +71,9 @@ def _weights(p: dict) -> dict[str, torch.Tensor]:
 def decode_positions(cfg: ModelConfig, n_steps: int, device: torch.device) -> torch.Tensor:
     """``sinusoid_table(max(max_decoder_steps, M), F)[:M]``, (M, F) f32 on
     ``device``, made once per shape."""
+    # imported here: the models package imports this module
+    from lip2speech_torch.models.layers import sinusoid_table
+
     table = sinusoid_table(max(cfg.max_decoder_steps, n_steps), cfg.ffn_hidden_dim)
     return torch.tensor(table[:n_steps], device=device)
 
@@ -79,6 +81,8 @@ def decode_positions(cfg: ModelConfig, n_steps: int, device: torch.device) -> to
 def ar_decode_reference(cfg: ModelConfig, p: dict, enc: dict, bos: torch.Tensor,
                         n_steps: int | None = None, weight_dtype=torch.bfloat16):
     """Plain PyTorch step loop computing what the kernel computes."""
+    from lip2speech_torch.models.layers import lstm_cell_step  # as in decode_positions
+
     M = n_steps or cfg.max_decoder_steps
     dev = enc["k"].device
 

@@ -100,3 +100,10 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             bound = 1.0 / math.sqrt(t[0].numel())
             t.copy_(torch.rand(t.shape, generator=generator) * (2 * bound) - bound)
     return model
+
+
+def get_network(cfg: ModelConfig) -> Lip2Speech:
+    """The lip-to-speech network for ``cfg`` (``model.get_network`` of the
+    reference, ``lip2speech_tpu/models/lip2speech.py:93-96``): a
+    ``Lip2Speech`` with the face net, in eval mode."""
+    return Lip2Speech(cfg)

@@ -1,9 +1,10 @@
 """Batched image ops and face-alignment math (PyTorch).
 
-Counterpart of ``lip2speech_tpu/ops/image.py``: the input normalisation of
-mouth frames and face crops (``:27-36``), the horizontal flips (``:39-50``)
-and the eye-line alignment (``:53-116``) as batched tensor ops, so the
-transforms can run on the device. A flip's draw comes from a
+Counterpart of ``lip2speech_tpu/ops/image.py``: the antialiased bilinear
+resize (``:21-24``), the input normalisation of mouth frames and face
+crops (``:27-36``), the horizontal flips (``:39-50``) and the eye-line
+alignment (``:53-116``) as batched tensor ops, so the transforms can run on
+the device. A flip's draw comes from a
 ``torch.Generator`` or is handed in (``flips``), so a test can give both
 packages the same draw.
 """
@@ -11,9 +12,27 @@ packages the same draw.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def resize_bilinear(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(..., H, W, C) -> (..., height, width, C), bilinear, as
+    ``jax.image.resize(..., "bilinear")`` with its default antialiasing: an
+    axis that shrinks is filtered by the triangle widened to the scale, an
+    axis that grows is interpolated, an axis that keeps its size comes out
+    unchanged. Integer input comes out f32; bf16 and f16 are resized in f32
+    and rounded back (the CPU has no bf16 antialiased resize)."""
+    h, w, c = img.shape[-3:]
+    x = img if img.is_floating_point() else img.float()
+    dtype = x.dtype
+    if dtype in (torch.bfloat16, torch.float16):
+        x = x.float()
+    y = F.interpolate(x.reshape(-1, h, w, c).permute(0, 3, 1, 2), size=(height, width),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1).to(dtype).reshape(*img.shape[:-3], height, width, c)
 
 
 def normalize_mouth(img: torch.Tensor) -> torch.Tensor:

@@ -3,9 +3,10 @@
 Counterpart of ``lip2speech_tpu/ops/stft.py``. The DFT stays a
 product with a real (cos | sin) basis rather than an FFT so the CPU parity
 with the JAX package stays tight; on the GPU these are large plain matrix
-products. Conventions match ``torch.stft`` with center=True, reflect
-padding, a periodic Hann window, no normalisation, onesided. Spectrogram
-layout is ``(..., n_freqs, n_frames)``.
+products. ``istft`` alone, on a complex spectrum, runs ``torch.fft.irfft``
+as the JAX package's does. Conventions match ``torch.stft`` with
+center=True, reflect padding, a periodic Hann window, no normalisation,
+onesided. Spectrogram layout is ``(..., n_freqs, n_frames)``.
 """
 
 from __future__ import annotations
@@ -106,16 +107,24 @@ def stft_matmul(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
 
 
 def stft(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
-         win_length: int | None = None) -> torch.Tensor:
+         win_length: int | None = None, window: torch.Tensor | None = None,
+         center: bool = True) -> torch.Tensor:
     """Complex STFT of ``x (..., n_samples)`` -> ``(..., n_freqs, T)``."""
-    return torch.complex(*stft_matmul(x, n_fft, hop_length, win_length))
+    return torch.complex(*stft_matmul(x, n_fft, hop_length, win_length, window, center))
 
 
 def spectrogram(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
-                win_length: int | None = None) -> torch.Tensor:
-    """Power spectrogram ``(..., n_freqs, T)`` (``stft.py:141-156``)."""
-    re, im = stft_matmul(x, n_fft, hop_length, win_length)
-    return re * re + im * im
+                win_length: int | None = None, power: float = 2.0,
+                center: bool = True) -> torch.Tensor:
+    """Power (or, at ``power`` 1, magnitude) spectrogram ``(..., n_freqs, T)``
+    (``stft.py:141-156``)."""
+    re, im = stft_matmul(x, n_fft, hop_length, win_length, center=center)
+    p = re * re + im * im
+    if power == 2.0:
+        return p
+    if power == 1.0:
+        return torch.sqrt(torch.clamp(p, min=1e-30))
+    return torch.pow(torch.clamp(p, min=1e-30), power / 2.0)
 
 
 def _overlap_add(frames: torch.Tensor, hop_length: int, n_fft: int) -> torch.Tensor:
@@ -136,6 +145,26 @@ def _overlap_add(frames: torch.Tensor, hop_length: int, n_fft: int) -> torch.Ten
     return out.index_add_(-1, idx_t, frames.reshape(*batch, -1))
 
 
+def _windowed_overlap_add(frames: torch.Tensor, window: torch.Tensor, hop_length: int,
+                          center: bool, length: int | None) -> torch.Tensor:
+    """Frames ``(..., T, n_fft)`` -> signal: each frame times the window,
+    overlap-added, divided by the overlap-added squared window, then the
+    ``center`` padding and anything past ``length`` cut off."""
+    n_fft = window.shape[0]
+    y = _overlap_add(frames * window, hop_length, n_fft)
+    t = frames.shape[-2]
+    norm = _overlap_add((window * window).expand(t, n_fft), hop_length, n_fft)
+    y = y / torch.clamp(norm, min=1e-11)
+    if center:
+        pad = n_fft // 2
+        y = y[..., pad:]
+        if length is None:
+            y = y[..., : y.shape[-1] - pad]
+    if length is not None:
+        y = y[..., :length]
+    return y
+
+
 def istft_matmul(re: torch.Tensor, im: torch.Tensor, n_fft: int = 1024,
                  hop_length: int = 256, win_length: int | None = None,
                  window: torch.Tensor | None = None, center: bool = True,
@@ -147,17 +176,19 @@ def istft_matmul(re: torch.Tensor, im: torch.Tensor, n_fft: int = 1024,
         window = hann_window(win_length, re.device)
     window = _pad_window(window, n_fft)
     both = torch.cat([re.transpose(-1, -2), im.transpose(-1, -2)], dim=-1)
-    frames = _flat_matmul(both, n_fft, True, compute_dtype) * window
-    y = _overlap_add(frames, hop_length, n_fft)
+    frames = _flat_matmul(both, n_fft, True, compute_dtype)
+    return _windowed_overlap_add(frames, window, hop_length, center, length)
 
-    t = re.shape[-1]
-    norm = _overlap_add((window * window).expand(t, n_fft), hop_length, n_fft)
-    y = y / torch.clamp(norm, min=1e-11)
-    if center:
-        pad = n_fft // 2
-        y = y[..., pad:]
-        if length is None:
-            y = y[..., : y.shape[-1] - pad]
-    if length is not None:
-        y = y[..., :length]
-    return y
+
+def istft(spec: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
+          win_length: int | None = None, window: torch.Tensor | None = None,
+          center: bool = True, length: int | None = None) -> torch.Tensor:
+    """Inverse STFT of a complex ``(..., n_freqs, T)`` spectrum through
+    ``irfft``, with window-square overlap-add normalisation (``torch.istft``'s
+    semantics; ``stft.py:249-283``)."""
+    win_length = win_length or n_fft
+    if window is None:
+        window = hann_window(win_length, spec.device)
+    window = _pad_window(window, n_fft)
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1)
+    return _windowed_overlap_add(frames, window, hop_length, center, length)

@@ -61,6 +61,7 @@ index sets for 2 shards with a ragged tail, against
 from __future__ import annotations
 
 import copy
+import importlib
 import os
 import subprocess
 import sys
@@ -283,7 +284,8 @@ def _run_steps(make_state, step, recorder, batch, dp, steps: int) -> dict:
 
 def plain_steps(dp) -> dict:
     from lip2speech_torch.models.lip2speech import Lip2Speech, init_random_
-    from lip2speech_torch.train import train_step as ts
+    # the module: the package exports a function of its name
+    ts = importlib.import_module("lip2speech_torch.train.train_step")
 
     cfg, _ = _configs()
 
@@ -300,7 +302,8 @@ def plain_steps(dp) -> dict:
 def adversarial_steps(dp) -> dict:
     from lip2speech_torch.models.lip2speech import Lip2Speech, init_random_
     from lip2speech_torch.train import adversarial as adv
-    from lip2speech_torch.train import train_step as ts
+    # the module: the package exports a function of its name
+    ts = importlib.import_module("lip2speech_torch.train.train_step")
 
     _, cfg = _configs()
 

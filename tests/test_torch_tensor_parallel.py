@@ -46,6 +46,7 @@ mesh; the grid's size rule against ``create_mesh``/``auto_mesh``.
 from __future__ import annotations
 
 import copy
+import importlib
 import functools
 import os
 import sys
@@ -189,7 +190,8 @@ class Gen:
     """The generator's train state, as the grid's steps hold it."""
 
     def __init__(self, cfg, dp):
-        from lip2speech_torch.train import train_step as ts
+        # the module: the package exports a function of its name
+        ts = importlib.import_module("lip2speech_torch.train.train_step")
 
         self.gen = ts.create_train_state(cfg, _model(cfg, dp))
 
@@ -234,7 +236,8 @@ def _step_batch() -> dict:
 
 
 def plain_step(dp) -> dict:
-    from lip2speech_torch.train import train_step as ts
+    # the module: the package exports a function of its name
+    ts = importlib.import_module("lip2speech_torch.train.train_step")
 
     cfg, _ = _configs()
     return _grid_step(lambda d: Gen(cfg, d),
@@ -311,7 +314,8 @@ def checkpoints(dp, state, ref, out_dir: str) -> dict:
     from lip2speech_torch.parallel import tensor
     from lip2speech_torch.parallel.dist import barrier
     from lip2speech_torch.train import checkpoint as ckpt
-    from lip2speech_torch.train import train_step as ts
+    # the module: the package exports a function of its name
+    ts = importlib.import_module("lip2speech_torch.train.train_step")
 
     cfg, _ = _configs()
     out = {}

@@ -2,8 +2,8 @@
 
 ``lip2speech_torch.weights.from_flax`` must give exactly what
 ``lip2speech_tpu.train.checkpoint.flax_to_torch`` gives (same keys, bitwise
-equal arrays), and the port's ``Lip2Speech`` must load it with
-``strict=True`` on the small and the default configs. The port imports
+equal arrays), and the port's ``Lip2Speech`` (built by ``get_network``)
+must load it with ``strict=True`` on the small and the default configs. The port imports
 nothing of JAX.
 """
 
@@ -11,20 +11,17 @@ import os
 import subprocess
 import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from lip2speech_tpu.config import ModelConfig as JModelConfig
-from lip2speech_tpu.models.lip2speech import Lip2Speech as JLip2Speech
 from lip2speech_tpu.train.checkpoint import flax_to_torch
 from lip2speech_torch import weights
 from lip2speech_torch.config import ModelConfig
 from lip2speech_torch.models.layers import FlaxRuleBatchNorm
-from lip2speech_torch.models.lip2speech import Lip2Speech
-from torch_port_common import fill_tree, small_configs, to_plain
+from lip2speech_torch.models.lip2speech import Lip2Speech, get_network
+from torch_port_common import lip2speech_variables, small_configs
 from torch_port_common import one_torch_thread  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -32,22 +29,10 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _tree(jc, face_net=True, seed=0):
-    model = JLip2Speech(jc)
-    B, T = 2, 14
-    video = jnp.zeros((B, T, 48, 48, 3))
-    faces = jnp.zeros((B, 2, 80, 80, 3)) if face_net else None
-    spk = None if face_net else jnp.zeros((B, jc.face_embedding_dim))
-    shapes = jax.eval_shape(lambda: model.init(
-        {"params": jax.random.PRNGKey(0)}, video, faces, None, 1.0, spk,
-        {"gumbel": jax.random.PRNGKey(1)}, train=False))
-    return to_plain(fill_tree(shapes, seed))
-
-
 @pytest.mark.parametrize("size", ["small", "default"])
 def test_from_flax_equals_flax_to_torch_and_loads_strict(size):
     jc, tc = small_configs() if size == "small" else (JModelConfig(), ModelConfig())
-    tree = _tree(jc)
+    tree = lip2speech_variables(jc)
     want = flax_to_torch(tree, jc)
     got = weights.from_flax(tree, tc)
     assert set(got) == set(want)
@@ -56,7 +41,8 @@ def test_from_flax_equals_flax_to_torch_and_loads_strict(size):
         assert g.dtype == v.dtype and g.shape == v.shape, k
         assert np.array_equal(g, v), k  # a layout move, so bitwise
 
-    model = Lip2Speech(tc)
+    model = get_network(tc)
+    assert isinstance(model, Lip2Speech)
     model.load_state_dict(got, strict=True)
     own = {k for k in model.state_dict() if not k.endswith("num_batches_tracked")}
     assert own == set(want)
@@ -77,7 +63,7 @@ def test_from_flax_without_face_net():
     """A model run with an external speaker embedding has no vgg_face:
     flax_to_torch raises, from_flax leaves the face net out."""
     jc, tc = small_configs()
-    tree = _tree(jc, face_net=False)
+    tree = lip2speech_variables(jc, face_net=False)
     assert "vgg_face" not in tree["params"]
     with pytest.raises(KeyError):
         flax_to_torch(tree, jc)
@@ -89,7 +75,7 @@ def test_from_flax_without_face_net():
 
 def test_load_reference_pth_splits_speaker_encoder(tmp_path):
     jc, tc = small_configs()
-    sd = weights.from_flax(_tree(jc), tc)
+    sd = weights.from_flax(lip2speech_variables(jc), tc)
     speaker = {"speaker_encoder.lstm.weight_ih_l0": torch.ones(4, 2)}
     path = tmp_path / "ref.pth"
     torch.save({"state_dict": {**sd, **speaker}}, path)
@@ -102,6 +88,11 @@ def test_load_reference_pth_splits_speaker_encoder(tmp_path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
+        "import lip2speech_torch\n"
+        "assert 'torch' not in sys.modules, 'importing the package alone loads torch'\n"
+        "import lip2speech_torch.kernels.ar_decode  # first: the models package imports it\n"
+        "import lip2speech_torch.models, lip2speech_torch.ops, lip2speech_torch.eval\n"
+        "import lip2speech_torch.train, lip2speech_torch.parallel\n"
         "import lip2speech_torch.cli.synthesize, lip2speech_torch.eval.long_video\n"
         "import lip2speech_torch.kernels.ar_decode, lip2speech_torch.weights\n"
         "import lip2speech_torch.train.checkpoint, lip2speech_torch.train.losses\n"

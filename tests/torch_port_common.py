@@ -12,6 +12,7 @@ from __future__ import annotations
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -69,6 +70,22 @@ def fill_tree(shapes, seed: int) -> dict:
         keys = tuple(str(getattr(k, "key", k)) for k in path)
         leaves.append(_leaf_value(keys, tuple(leaf.shape), rng).astype(np.float32))
     return jax.tree_util.tree_unflatten(treedef, leaves)
+
+
+def lip2speech_variables(jc, face_net: bool = True, seed: int = 0) -> dict:
+    """Seeded variables of the JAX ``Lip2Speech(jc)`` (with the face net, or
+    initialised on a ``speaker_embedding``), as plain dicts."""
+    from lip2speech_tpu.models.lip2speech import Lip2Speech
+
+    model = Lip2Speech(jc)
+    B, T = 2, 14
+    video = jnp.zeros((B, T, 48, 48, 3))
+    faces = jnp.zeros((B, 2, 80, 80, 3)) if face_net else None
+    spk = None if face_net else jnp.zeros((B, jc.face_embedding_dim))
+    shapes = jax.eval_shape(lambda: model.init(
+        {"params": jax.random.PRNGKey(0)}, video, faces, None, 1.0, spk,
+        {"gumbel": jax.random.PRNGKey(1)}, train=False))
+    return to_plain(fill_tree(shapes, seed))
 
 
 def to_plain(tree) -> dict:
