@@ -1,0 +1,7 @@
+"""Offline synthesis: clips whose waveform reached the host, over the window (host clock)."""
+
+from port_bench.harness import readers
+
+
+def read(rec):
+    return readers.rate(rec, "infer")
