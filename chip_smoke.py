@@ -540,7 +540,7 @@ def print_profile(fn, B: int, card: str, top: int = 8, ranges: str | None = None
     events = prof.key_averages()
     # a profiler range also shows on the device's timeline: keep kernels only
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not (ranges and e.key.startswith(ranges))]
+               and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"profile B={B}: wall {wall_ms:.2f} ms (profiled), device busy {busy_ms:.2f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f} [{card}]")

@@ -34,7 +34,11 @@ several ranks share one card. Only rank 0 writes checkpoints, logs and the
 console.
 
 The loop reads metrics from the device only at log ticks, and, when
-rewinding is on, the previous step's ``notfinite_count`` each step.
+rewinding is on, the previous step's ``notfinite_count`` each step. A
+``trace.recording()`` stays open over the loop: each log tick also writes
+a row of ``host/<span>`` scalars, each span's host self ms a step over the
+steps since the previous log or eval tick (``utils/trace.py``), and
+``host/spans_dropped``, the spans the recording's bound left out.
 
 Usage: python -m lip2speech_torch.cli.train --dataset LRW --root ... [--device cuda]
        python -m torch.distributed.run --nproc_per_node 2 -m lip2speech_torch.cli.train \
@@ -66,6 +70,7 @@ from lip2speech_torch.train import checkpoint as ckpt
 from lip2speech_torch.train.adversarial import adversarial_train_step, init_critic
 from lip2speech_torch.train.logging_utils import MetricLogger, profile_steps
 from lip2speech_torch.train.train_step import create_train_state, train_step
+from lip2speech_torch.utils import trace
 
 
 def parse_args(argv=None):
@@ -133,7 +138,9 @@ def rewind_seed(seed: int, rewinds: int) -> int:
 
 def _profile_summary(prof, wall_s: float) -> dict:
     """Device busy time, kernel launches and the idle share of ``wall_s``."""
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a span's range shows on the device's timeline too: keep the device's own operations
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     wall_ms = wall_s * 1e3
     return {"wall_ms": wall_ms, "device_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
@@ -268,79 +275,88 @@ def _train(args, cfg: Config, dp, device, batch_size: int) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    try:
-        for it in range(start_it, max_iters):
-            epoch = it // steps_per_epoch
-            tf_ratio = tf_ratio_at(tc, epoch)
-            profiling = it + 1 == args.profile_step
-            if profiling:
-                sync()
-                t0 = time.perf_counter()
-            with profile_steps() if profiling else contextlib.nullcontext() as prof:
-                if staged is None:
-                    raw = to_device(next(data_iter), device)
-                    pdist.agree_over_model_group_(raw.values(), dp)  # the same rows, drawn once
-                    batch = prepare_batch(raw, cfg.audio, cfg.data)
-                    batch.pop("audio"), batch.pop("audio_lengths")
-                    if args.reuse_first_batch:
-                        staged = batch
-                        data_iter.close()  # no more batches are needed
-                else:
-                    batch = staged
-                if critic is None:
-                    metrics = train_step(state, batch, tf_ratio, cfg, seed=stream_seed, dp=dp)
-                else:
-                    metrics = adversarial_train_step(state, critic, batch, tf_ratio, cfg,
-                                                     seed=stream_seed, dp=dp)
+    host_steps = 0  # the steps the recording holds
+    with trace.recording() as spans:
+        try:
+            for it in range(start_it, max_iters):
+                epoch = it // steps_per_epoch
+                tf_ratio = tf_ratio_at(tc, epoch)
+                profiling = it + 1 == args.profile_step
                 if profiling:
                     sync()
-                    wall = time.perf_counter() - t0
-            if profiling:
-                result["profile"] = _profile_summary(prof, wall)
-                logger.scalars(it + 1, result["profile"], prefix="profile/")
-                say(f"[{it + 1}] profiled step: " + ", ".join(
-                    f"{k} {v:.3f}" for k, v in result["profile"].items()))
+                    t0 = time.perf_counter()
+                with profile_steps() if profiling else contextlib.nullcontext() as prof:
+                    if staged is None:
+                        raw = to_device(next(data_iter), device)
+                        pdist.agree_over_model_group_(raw.values(), dp)  # the same rows, drawn once
+                        batch = prepare_batch(raw, cfg.audio, cfg.data)
+                        batch.pop("audio"), batch.pop("audio_lengths")
+                        if args.reuse_first_batch:
+                            staged = batch
+                            data_iter.close()  # no more batches are needed
+                    else:
+                        batch = staged
+                    if critic is None:
+                        metrics = train_step(state, batch, tf_ratio, cfg, seed=stream_seed, dp=dp)
+                    else:
+                        metrics = adversarial_train_step(state, critic, batch, tf_ratio, cfg,
+                                                         seed=stream_seed, dp=dp)
+                    if profiling:
+                        sync()
+                        wall = time.perf_counter() - t0
+                if profiling:
+                    result["profile"] = _profile_summary(prof, wall)
+                    logger.scalars(it + 1, result["profile"], prefix="profile/")
+                    say(f"[{it + 1}] profiled step: " + ", ".join(
+                        f"{k} {v:.3f}" for k, v in result["profile"].items()))
 
-            if args.rewind_on_stall:
-                if pending_nfc is not None:
-                    last_consec = float(pending_nfc)
-                pending_nfc = metrics.get("notfinite_count")
-                if last_consec >= args.rewind_on_stall and rewinds < args.max_rewinds:
-                    do_rewind()
-                    last_consec = 0.0
-                    pending_nfc = None
+                if args.rewind_on_stall:
+                    if pending_nfc is not None:
+                        last_consec = float(pending_nfc)
+                    pending_nfc = metrics.get("notfinite_count")
+                    if last_consec >= args.rewind_on_stall and rewinds < args.max_rewinds:
+                        do_rewind()
+                        last_consec = 0.0
+                        pending_nfc = None
 
-            if (it + 1) % log_interval == 0:
-                values = {k: float(v) for k, v in metrics.items()}
-                values["tf_ratio"] = tf_ratio
-                values["epoch"] = epoch
-                logger.scalars(it + 1, values)
-                logger.console(it + 1, values, total_steps=max_iters)
+                host_steps += 1
+                if (it + 1) % log_interval == 0:
+                    values = {k: float(v) for k, v in metrics.items()}
+                    values["tf_ratio"] = tf_ratio
+                    values["epoch"] = epoch
+                    logger.scalars(it + 1, values)
+                    logger.console(it + 1, values, total_steps=max_iters)
+                    host = {k: v / host_steps for k, v in spans.self_ms().items()}
+                    logger.scalars(it + 1, {**host, "spans_dropped": spans.dropped}, prefix="host/")
+                    spans.clear()
+                    host_steps = 0
 
-            if (it + 1) % eval_interval == 0:
-                score = evaluate_net(model, eval_ds, cfg, batch_size=min(32, batch_size),
-                                     max_batches=args.eval_batches, dp=dp)
-                logger.scalars(it + 1, {"estoi": score}, prefix="eval/")
-                logger.histograms(it + 1, tensor.full_named_parameters(model))
-                say(f"[{it + 1}] eval ESTOI {score:.4f} (best {best_score:.4f})")
-                if score > best_score:
-                    best_score = score
-                    ckpt.save_checkpoint(args.ckpt_dir, it + 1, state, {"best_score": best_score},
-                                         dp)
-                    last_saved_step = it + 1
-                if args.rewind_on_stall and pending_nfc is not None:
-                    last_consec = float(pending_nfc)  # this step's, before the safety save
-                    pending_nfc = None
-                if args.rewind_on_stall and last_consec == 0.0:
-                    # a safety save only from a step that was taken
-                    ckpt.save_checkpoint(safety_dir, it + 1, state, {"best_score": best_score},
-                                         dp)
-                    ckpt.prune_checkpoints(safety_dir, keep=5, dp=dp)
-                    if it - last_rewind_it >= eval_interval:
-                        rewind_depth = 0
-    finally:
-        data_iter.close()
-        logger.close()
+                if (it + 1) % eval_interval == 0:
+                    score = evaluate_net(model, eval_ds, cfg, batch_size=min(32, batch_size),
+                                         max_batches=args.eval_batches, dp=dp)
+                    logger.scalars(it + 1, {"estoi": score}, prefix="eval/")
+                    logger.histograms(it + 1, tensor.full_named_parameters(model))
+                    say(f"[{it + 1}] eval ESTOI {score:.4f} (best {best_score:.4f})")
+                    spans.clear()  # the eval tick's spans are no train step's
+                    host_steps = 0
+                    if score > best_score:
+                        best_score = score
+                        ckpt.save_checkpoint(args.ckpt_dir, it + 1, state, {"best_score": best_score},
+                                             dp)
+                        last_saved_step = it + 1
+                    if args.rewind_on_stall and pending_nfc is not None:
+                        last_consec = float(pending_nfc)  # this step's, before the safety save
+                        pending_nfc = None
+                    if args.rewind_on_stall and last_consec == 0.0:
+                        # a safety save only from a step that was taken
+                        ckpt.save_checkpoint(safety_dir, it + 1, state, {"best_score": best_score},
+                                             dp)
+                        ckpt.prune_checkpoints(safety_dir, keep=5, dp=dp)
+                        if it - last_rewind_it >= eval_interval:
+                            rewind_depth = 0
+        finally:
+            data_iter.close()
+            logger.close()
 
     if dp is not None:
         held, shards = tensor.state_parts(model)

@@ -23,6 +23,7 @@ from lip2speech_torch.config import AudioConfig, DataConfig
 from lip2speech_torch.models.layers import resolve_device
 from lip2speech_torch.ops import image as image_ops
 from lip2speech_torch.ops import mel as mel_ops
+from lip2speech_torch.utils import trace
 
 
 def collate(samples: Sequence[dict], cfg: DataConfig) -> dict[str, np.ndarray]:
@@ -80,25 +81,26 @@ def prepare_batch(raw: dict[str, torch.Tensor], audio_cfg: AudioConfig = AudioCo
     log-mel padded with ``mel_pad_value``, gate (B, M) with 1s from the
     last valid frame on, mel_mask (B, M) on the valid frames; mel lengths
     come from ``audio_lengths // hop + 1``."""
-    video = image_ops.normalize_mouth(raw["mouth_u8"])
-    frames = torch.arange(video.shape[1], device=video.device)
-    video = video * (frames[None, :] < raw["video_lengths"][:, None])[:, :, None, None, None]
-    faces = image_ops.normalize_face(raw["faces_u8"])
+    with trace.span("data.prepare_batch"):
+        video = image_ops.normalize_mouth(raw["mouth_u8"])
+        frames = torch.arange(video.shape[1], device=video.device)
+        video = video * (frames[None, :] < raw["video_lengths"][:, None])[:, :, None, None, None]
+        faces = image_ops.normalize_face(raw["faces_u8"])
 
-    mel = mel_ops.melspectrogram(raw["audio"], audio_cfg)  # (B, 80, M)
-    mel_lengths = (1 + raw["audio_lengths"] // audio_cfg.hop_length).to(torch.int32)
-    steps = torch.arange(mel.shape[-1], device=mel.device)[None, :]
-    valid = steps < mel_lengths[:, None]
-    mel = torch.where(valid[:, None, :], mel, data_cfg.mel_pad_value)
-    gate = (steps >= (mel_lengths - 1)[:, None]).float()
-    return {
-        "video": video,
-        "faces": faces,
-        "mel": mel,
-        "gate": gate,
-        "mel_mask": valid,
-        "video_lengths": raw["video_lengths"],
-        "mel_lengths": mel_lengths,
-        "audio": raw["audio"],
-        "audio_lengths": raw["audio_lengths"],
-    }
+        mel = mel_ops.melspectrogram(raw["audio"], audio_cfg)  # (B, 80, M)
+        mel_lengths = (1 + raw["audio_lengths"] // audio_cfg.hop_length).to(torch.int32)
+        steps = torch.arange(mel.shape[-1], device=mel.device)[None, :]
+        valid = steps < mel_lengths[:, None]
+        mel = torch.where(valid[:, None, :], mel, data_cfg.mel_pad_value)
+        gate = (steps >= (mel_lengths - 1)[:, None]).float()
+        return {
+            "video": video,
+            "faces": faces,
+            "mel": mel,
+            "gate": gate,
+            "mel_mask": valid,
+            "video_lengths": raw["video_lengths"],
+            "mel_lengths": mel_lengths,
+            "audio": raw["audio"],
+            "audio_lengths": raw["audio_lengths"],
+        }

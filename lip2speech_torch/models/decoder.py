@@ -49,6 +49,7 @@ from lip2speech_torch.models.layers import (
 )
 from lip2speech_torch.parallel import tensor
 from lip2speech_torch.parallel.dist import uniform
+from lip2speech_torch.utils import trace
 
 
 @functools.lru_cache(maxsize=64)
@@ -270,29 +271,30 @@ class Decoder(RankAware, nn.Module):
 
     def encode(self, encoder_outputs, face_features, gumbel=None, generator=None) -> dict:
         """Everything before the AR loop (decoder.py:381-424)."""
-        T = encoder_outputs.shape[1]
-        w = self.residual_bottleneck.weight[:, :, 0]
-        residual = F.linear(encoder_outputs, w, self.residual_bottleneck.bias)
-        enc_site = self.encoder_site(face_features)
-        att_site = self.attention_site(face_features)
-        h0 = torch.stack([enc_site, enc_site]).contiguous()  # both directions; c0 = h0
-        enc_out, (hidden, cell) = self.encoder_rnn(encoder_outputs, (h0, h0))
-        encoder_cell = self.E_C(torch.cat([cell[0], cell[1]], dim=-1))
-        enc_out = self.encoder_proj(enc_out) + att_site[:, None, :] + residual
+        with trace.span("decoder.encode"):
+            T = encoder_outputs.shape[1]
+            w = self.residual_bottleneck.weight[:, :, 0]
+            residual = F.linear(encoder_outputs, w, self.residual_bottleneck.bias)
+            enc_site = self.encoder_site(face_features)
+            att_site = self.attention_site(face_features)
+            h0 = torch.stack([enc_site, enc_site]).contiguous()  # both directions; c0 = h0
+            enc_out, (hidden, cell) = self.encoder_rnn(encoder_outputs, (h0, h0))
+            encoder_cell = self.E_C(torch.cat([cell[0], cell[1]], dim=-1))
+            enc_out = self.encoder_proj(enc_out) + att_site[:, None, :] + residual
 
-        pos = torch.as_tensor(
-            np.array(sinusoid_table(self.cfg.max_encoder_positions, self.cfg.ffn_hidden_dim)[:T]),
-            dtype=enc_out.dtype, device=enc_out.device,
-        )
-        enc_t = enc_out.transpose(1, 2)
-        k_bank = self.K[1](self.K[0](enc_t).transpose(1, 2)) + pos
-        v_bank = self.V[1](self.V[0](enc_t).transpose(1, 2)) + pos
-        content_key, content_value, content_dist = self.content(enc_t, gumbel, generator)
-        return {
-            "hidden": hidden, "encoder_cell": encoder_cell, "k": k_bank, "v": v_bank,
-            "content_key": content_key, "content_value": content_value,
-            "content_dist": content_dist,
-        }
+            pos = torch.as_tensor(
+                np.array(sinusoid_table(self.cfg.max_encoder_positions, self.cfg.ffn_hidden_dim)[:T]),
+                dtype=enc_out.dtype, device=enc_out.device,
+            )
+            enc_t = enc_out.transpose(1, 2)
+            k_bank = self.K[1](self.K[0](enc_t).transpose(1, 2)) + pos
+            v_bank = self.V[1](self.V[0](enc_t).transpose(1, 2)) + pos
+            content_key, content_value, content_dist = self.content(enc_t, gumbel, generator)
+            return {
+                "hidden": hidden, "encoder_cell": encoder_cell, "k": k_bank, "v": v_bank,
+                "content_key": content_key, "content_value": content_value,
+                "content_dist": content_dist,
+            }
 
     def forward(self, encoder_outputs, face_features, gumbel=None, generator=None,
                 mels=None, tf_ratio=1.0, draws: dict | None = None) -> dict:
@@ -323,10 +325,12 @@ class Decoder(RankAware, nn.Module):
         cfg = self.cfg
         bos = self.BOS.reshape(1, -1).expand(B, -1)
         weight_dtype = self.fc_out.linear_layer.weight.dtype
-        mels, stops, attn = ar_decode(cfg, self.ar_params(), enc, bos, n_steps,
-                                      weight_dtype=weight_dtype)
+        with trace.span("decoder.ar_decode"):
+            mels, stops, attn = ar_decode(cfg, self.ar_params(), enc, bos, n_steps,
+                                          weight_dtype=weight_dtype)
         outputs = mels.permute(1, 2, 0)  # (B, n_mels, M) f32
-        post = self.postnet(outputs.to(weight_dtype)).float() + outputs
+        with trace.span("decoder.postnet"):
+            post = self.postnet(outputs.to(weight_dtype)).float() + outputs
         return {"mel": outputs, "mel_postnet": post, "gate": stops.permute(1, 0, 2),
                 "attention": attn.permute(1, 0, 2)}
 
@@ -388,36 +392,38 @@ class Decoder(RankAware, nn.Module):
         c = torch.zeros_like(h)
         ys = bos.expand(B, -1)
         mel_frames, stops, attns = [], [], []
-        for i in range(M):
-            if cfg.scan_grad_clip > 0.0:
-                h = clip_grad_norm(h, cfg.scan_grad_clip, self.dp)
-                c = clip_grad_norm(c, cfg.scan_grad_clip, self.dp)
-                ys = clip_grad_norm(ys, cfg.scan_grad_clip, self.dp)
-            ys_in = torch.where(use_teacher[i], teacher[i], ys)
-            pre = self.prenet[1](self.prenet[0](ys_in))
-            if prenet_keep is not None:
-                pre = dropout(pre, prenet_keep[i], cfg.prenet_dropout)
-            pre = self.prenet[4](self.prenet[3](pre))
-            q = self.Q(torch.cat([h[0], h[1]], -1)) + pos[i]
-            scores = at_least_f32(torch.bmm((q * self.temperature)[:, None], k_bank_t)[:, 0])
-            if attention_keep is not None:  # on the f32 scores: a dropped score is 0
-                scores = dropout(scores, attention_keep[i], cfg.attention_dropout)
-            a = torch.softmax(scores, dim=-1).to(dtype)
-            o = self.attention_proj(torch.bmm(a[:, None], v_bank)[:, 0])
-            # content attention, queried by the cell states
-            cq = self.content.Q(torch.cat([c[0], c[1]], -1))
-            ca = torch.softmax(torch.bmm((cq * self.content.temperature)[:, None], c_key_t)[:, 0], dim=-1)
-            content_o = torch.bmm(ca[:, None], enc["content_value"])[:, 0]
-            h0, c0 = cell(0, torch.cat([content_o, pre + o], -1), h[0], c[0])
-            h0_in = h0 if rnn_keep is None else dropout(h0, rnn_keep[i], cfg.decoder_rnn_dropout)
-            h1, c1 = cell(1, h0_in, h[1], c[1])
-            ys = self.fc_out(h1)
-            stops.append(self.stop_token_layer(torch.cat([h1, encoder_cell], -1)))
-            mel_frames.append(ys)
-            attns.append(a)
-            h, c = torch.stack([h0, h1]), torch.stack([c0, c1])
+        with trace.span("decoder.teacher_forced"):
+            for i in range(M):
+                if cfg.scan_grad_clip > 0.0:
+                    h = clip_grad_norm(h, cfg.scan_grad_clip, self.dp)
+                    c = clip_grad_norm(c, cfg.scan_grad_clip, self.dp)
+                    ys = clip_grad_norm(ys, cfg.scan_grad_clip, self.dp)
+                ys_in = torch.where(use_teacher[i], teacher[i], ys)
+                pre = self.prenet[1](self.prenet[0](ys_in))
+                if prenet_keep is not None:
+                    pre = dropout(pre, prenet_keep[i], cfg.prenet_dropout)
+                pre = self.prenet[4](self.prenet[3](pre))
+                q = self.Q(torch.cat([h[0], h[1]], -1)) + pos[i]
+                scores = at_least_f32(torch.bmm((q * self.temperature)[:, None], k_bank_t)[:, 0])
+                if attention_keep is not None:  # on the f32 scores: a dropped score is 0
+                    scores = dropout(scores, attention_keep[i], cfg.attention_dropout)
+                a = torch.softmax(scores, dim=-1).to(dtype)
+                o = self.attention_proj(torch.bmm(a[:, None], v_bank)[:, 0])
+                # content attention, queried by the cell states
+                cq = self.content.Q(torch.cat([c[0], c[1]], -1))
+                ca = torch.softmax(torch.bmm((cq * self.content.temperature)[:, None], c_key_t)[:, 0], dim=-1)
+                content_o = torch.bmm(ca[:, None], enc["content_value"])[:, 0]
+                h0, c0 = cell(0, torch.cat([content_o, pre + o], -1), h[0], c[0])
+                h0_in = h0 if rnn_keep is None else dropout(h0, rnn_keep[i], cfg.decoder_rnn_dropout)
+                h1, c1 = cell(1, h0_in, h[1], c[1])
+                ys = self.fc_out(h1)
+                stops.append(self.stop_token_layer(torch.cat([h1, encoder_cell], -1)))
+                mel_frames.append(ys)
+                attns.append(a)
+                h, c = torch.stack([h0, h1]), torch.stack([c0, c1])
 
         outputs = torch.stack(mel_frames, -1)  # (B, n_mels, M)
-        post = self.postnet(outputs, postnet_keep) + outputs
+        with trace.span("decoder.postnet"):
+            post = self.postnet(outputs, postnet_keep) + outputs
         return {"mel": outputs, "mel_postnet": post, "gate": torch.stack(stops, 1),
                 "attention": torch.stack(attns, 1)}

@@ -29,6 +29,7 @@ from lip2speech_torch.models.decoder import Decoder
 from lip2speech_torch.models.face import FaceRecognizer
 from lip2speech_torch.models.layers import dropout, keep_mask
 from lip2speech_torch.models.video import VideoExtractor
+from lip2speech_torch.utils import trace
 
 
 class Lip2Speech(nn.Module):
@@ -60,7 +61,7 @@ class Lip2Speech(nn.Module):
         the encoder features (B, T, C_video); ``gumbel`` is the content
         codebook's noise (B*S, vocab). A draw that is absent comes from
         ``generator``."""
-        with torch.no_grad() if mels is None else contextlib.nullcontext():
+        with trace.span("model.forward"), torch.no_grad() if mels is None else contextlib.nullcontext():
             feats = self.encoder(video)
             rate = self.cfg.encoder_feature_dropout
             if mels is not None and self.training and rate > 0.0:
@@ -70,7 +71,7 @@ class Lip2Speech(nn.Module):
             if speaker_embedding is None:
                 if self.vgg_face is None:
                     raise ValueError("a model without the face net needs a speaker_embedding")
-                with torch.no_grad():
+                with trace.span("model.face_net"), torch.no_grad():
                     speaker_embedding = self.vgg_face.inference(faces[:, 0].permute(0, 3, 1, 2))
             T = feats.shape[1]
             visual = torch.cat([feats, speaker_embedding[:, None, :].expand(-1, T, -1)], dim=-1)

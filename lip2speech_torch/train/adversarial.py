@@ -49,7 +49,6 @@ import contextlib
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from lip2speech_torch.config import Config
 from lip2speech_torch.models.discriminator import Discriminator, sample_patch
@@ -60,6 +59,7 @@ from lip2speech_torch.parallel.dist import (DataParallel, agree_over_model_group
 from lip2speech_torch.train.losses import discriminator_loss, generator_loss, global_losses
 from lip2speech_torch.train.train_step import (TrainState, apply_update, backward,
                                                forward_losses, step_draws)
+from lip2speech_torch.utils import trace
 
 RMS_DECAY, RMS_EPS = 0.9, 1e-8
 CRITIC_CLIP = 0.01
@@ -122,7 +122,7 @@ def critic_step(critic: CriticState, real_mel: torch.Tensor, fake_mel: torch.Ten
     fake_mel, speaker = fake_mel.detach(), speaker.detach()
     params = critic.opt.params
     norms = [m for m in disc.modules() if isinstance(m, FlaxRuleBatchNorm)]
-    with record_function("adversarial.critic"), _mode(disc, True), data_parallel(disc, dp):
+    with trace.span("adversarial.critic"), _mode(disc, True), data_parallel(disc, dp):
         real_pred = disc(real_mel.detach(), speaker, patch)
         new_stats = [m.new_stats for m in norms]  # the real pass's
         fake_pred = disc(fake_mel, speaker, patch)
@@ -154,7 +154,7 @@ def generator_terms(critic: CriticState, real_mel: torch.Tensor, fake_mel: torch
     ``patch`` of the real mel (no gradient) and the fake one (gradient
     through ``fake_mel``); this rank's shares under ``dp``."""
     disc = critic.disc
-    with record_function("adversarial.generator_terms"), _mode(disc, False):
+    with trace.span("adversarial.generator_terms"), _mode(disc, False):
         with torch.no_grad():
             _, real_feats = disc(real_mel, speaker, patch, return_features=True)
         fake_pred, fake_feats = disc(fake_mel, speaker, patch, return_features=True)

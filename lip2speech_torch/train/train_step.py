@@ -11,8 +11,9 @@ batch (``torch.func.functional_call``), so the gradients land in f32 on the
 masters; the outputs and the new statistics are cast back to f32, and the
 loss is taken in f32 against the f32 targets.
 
-Under ``torch.profiler`` the stages show as the ranges ``train.forward``,
-``train.backward``, ``train.optimizer`` and ``train.batch_stats``.
+The stages are the spans (``utils/trace.py``) ``train.forward``,
+``train.loss``, ``train.backward``, ``train.optimizer`` (with
+``train.grad_all_reduce``) and ``train.batch_stats``.
 
 Random draws. The JAX step derives its keys from ``fold_in(rng, step)``;
 here a step without explicit ``draws`` draws them from a generator seeded
@@ -48,7 +49,6 @@ import dataclasses
 import numpy as np
 import torch
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from lip2speech_torch.config import Config
 from lip2speech_torch.models.layers import FlaxRuleBatchNorm, data_parallel
@@ -58,6 +58,7 @@ from lip2speech_torch.parallel.dist import (DataParallel, RowDraws, agree_over_m
                                             all_reduce_)
 from lip2speech_torch.train.losses import global_losses, lip2speech_loss
 from lip2speech_torch.train.optim import AMSGrad, all_finite, fold_lstm_biases_, is_trainable
+from lip2speech_torch.utils import trace
 
 
 def cast_floats(tree: dict, dtype) -> dict:
@@ -134,7 +135,7 @@ def forward_losses(state: TrainState, batch: dict, tf_ratio, cfg: Config,
         weights = cast_floats(weights, torch.bfloat16)
         fwd_batch = cast_floats(batch, torch.bfloat16)
     try:
-        with record_function("train.forward"), data_parallel(model, dp):
+        with trace.span("train.forward"), data_parallel(model, dp):
             outputs = functional_call(
                 model, weights, (fwd_batch["video"], fwd_batch.get("faces")),
                 dict(speaker_embedding=fwd_batch.get("speaker_embedding"), generator=generator,
@@ -147,10 +148,11 @@ def forward_losses(state: TrainState, batch: dict, tf_ratio, cfg: Config,
     finally:
         model.train(was_training)
     outputs = uncast_floats(outputs) if bf16 else outputs
-    losses = lip2speech_loss(
-        outputs, batch["mel"], batch["gate"], postnet_weight=cfg.train.postnet_loss_weight,
-        mel_mask=batch.get("mel_mask") if cfg.train.masked_loss else None,
-        kld_weight=cfg.train.kld_weight, dp=dp)
+    with trace.span("train.loss"):
+        losses = lip2speech_loss(
+            outputs, batch["mel"], batch["gate"], postnet_weight=cfg.train.postnet_loss_weight,
+            mel_mask=batch.get("mel_mask") if cfg.train.masked_loss else None,
+            kld_weight=cfg.train.kld_weight, dp=dp)
     return outputs, losses, new_stats
 
 
@@ -159,7 +161,7 @@ def backward(state: TrainState, losses: dict, dp: DataParallel | None = None) ->
     respect to the trainable parameters, in ``state.opt.names`` order).
     Under ``dp`` the gradients are this rank's share and the losses the
     global batch's (``losses.global_losses``)."""
-    with record_function("train.backward"):
+    with trace.span("train.backward"):
         grads = torch.autograd.grad(losses["total"], state.opt.params, allow_unused=True)
     return global_losses(losses, dp), grads
 
@@ -201,13 +203,13 @@ def apply_update(state: TrainState, cfg: Config, losses: dict, new_stats: dict,
     it is taken, and one more step. Under ``dp`` the flat gradient vector is
     summed over the data group first. Returns the metrics: ``losses``,
     ``grad_norm`` and, when updates are guarded, ``notfinite_count``."""
-    with record_function("train.optimizer"):
+    with trace.span("train.optimizer"):
         # summed over the data group in the gradients' own type (f32 under the bf16 policy)
-        with record_function("train.grad_all_reduce"):
+        with trace.span("train.grad_all_reduce"):
             g = all_reduce_(state.opt.flatten(grads, dtype=None), dp).float()
         info = state.opt.step(g)
     stats = batch_norm_stats(state.model)
-    with torch.no_grad(), record_function("train.batch_stats"):
+    with torch.no_grad(), trace.span("train.batch_stats"):
         kept = guard_batch_stats(cfg, info["ok"], new_stats, stats)
         agree_over_model_group_(kept.values(), dp)
         for name, value in kept.items():

@@ -91,6 +91,11 @@ def test_train_eval_checkpoint_resume(trained):
     assert [r["step"] for r in rows if "total" in r] == [1, 2, 3]
     assert all(np.isfinite(r["total"]) for r in rows if "total" in r)
     assert [r["step"] for r in rows if "eval/estoi" in r] == [2]
+    # each log tick's host self ms a step by span, a row of its own
+    host = [r for r in rows if "host/train.backward" in r]
+    assert [r["step"] for r in host] == [1, 2, 3]
+    assert all(r["host/train.backward"] > 0 and r["host/decoder.teacher_forced"] > 0
+               and r["host/spans_dropped"] == 0 for r in host)
     assert first["loader"]["batches"] >= 2
     with open(tmp / "run" / "histograms.jsonl") as f:
         hist = json.loads(f.readline())
