@@ -5,6 +5,11 @@ reference ``.pth``, a checkpoint directory of this port
 (``train/checkpoint.py``) or, with no path, random weights from the
 config's seed; a path that is given but unusable raises.
 
+``load_vocoder`` builds the mel -> waveform stage that ``--override
+vocoder.kind`` names: nothing for Griffin-Lim, BigVGAN from
+``--vocoder_checkpoint`` (a BigVGAN checkpoint whose weight norm is folded)
+or, without one, random from the config's seed.
+
 ``start_data_parallel`` joins the process group of a run launched by
 ``torch.distributed.run`` (``parallel/dist.py``), with the groups of its
 rank grid, and picks the rank's device; ``--dist_backend`` names the
@@ -23,6 +28,7 @@ from lip2speech_torch import weights
 from lip2speech_torch.config import Config, config_with_overrides
 from lip2speech_torch.models.layers import resolve_device
 from lip2speech_torch.models.lip2speech import Lip2Speech, init_random_
+from lip2speech_torch.models.vocoder import build_vocoder
 from lip2speech_torch.parallel import dist as pdist
 from lip2speech_torch.train import checkpoint as ckpt
 
@@ -38,6 +44,9 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--override", action="append", default=[],
                    help="config override key=value (e.g. model.gumbel_tau=0.5)")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    p.add_argument("--vocoder_checkpoint", default=None,
+                   help="BigVGAN generator checkpoint, with --override vocoder.kind=bigvgan; "
+                        "random weights from train.seed when absent")
     return p
 
 
@@ -88,3 +97,11 @@ def load_model(cfg: Config, model_path: str | None, device: torch.device):
     else:
         init_random_(model, torch.Generator().manual_seed(cfg.train.seed))
     return model.to(device), speaker_sd
+
+
+def load_vocoder(cfg: Config, checkpoint: str | None, device: torch.device):
+    """The vocoder's generator on ``device`` in f32 (None for Griffin-Lim):
+    ``checkpoint``'s weights, or random from ``cfg.train.seed``."""
+    if checkpoint and cfg.vocoder.kind == "griffin_lim":
+        raise ValueError("--vocoder_checkpoint needs --override vocoder.kind=bigvgan")
+    return build_vocoder(cfg, device, checkpoint=checkpoint or None)

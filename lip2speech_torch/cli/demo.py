@@ -4,7 +4,8 @@ Counterpart of ``lip2speech_tpu/cli/demo.py``: for each of the first
 ``--n_clips`` test clips (batch 1, in order), the model decodes its 300
 steps (the AR kernel on the card), and the clip writes
 ``<out>/clip{i}_gt.wav`` (the recording), ``clip{i}_gt_gl.wav`` (its mel
-through NNLS + Griffin-Lim), ``clip{i}_pred.wav`` (the prediction, cut at
+through the vocoder: NNLS + Griffin-Lim, or BigVGAN under ``--override
+vocoder.kind=bigvgan``, from ``--vocoder_checkpoint``), ``clip{i}_pred.wav`` (the prediction, cut at
 the gate's stop) and the ``mel_predicted``, ``mel_target``, ``alignment``
 and ``gate`` PNGs. The speaker conditioning comes from the face crop
 (``--encoding face``) or from the recording through the voice
@@ -25,13 +26,13 @@ import numpy as np
 import torch
 from scipy.io import wavfile
 
-from lip2speech_torch.cli.common import add_common_args, common_config, load_model
+from lip2speech_torch.cli.common import add_common_args, common_config, load_model, load_vocoder
 from lip2speech_torch.data import Loader, get_dataset
 from lip2speech_torch.data.collate import prepare_batch, to_device
 from lip2speech_torch.models.layers import resolve_device
 from lip2speech_torch.models.lip2speech import init_random_
 from lip2speech_torch.models.speaker import SpeakerEncoder
-from lip2speech_torch.ops.griffin_lim import mel_to_audio
+from lip2speech_torch.models.vocoder import mel_to_waveform
 from lip2speech_torch.train.logging_utils import MetricLogger
 
 
@@ -56,6 +57,7 @@ def main(argv=None) -> list[dict]:
 
     ds = get_dataset(args.dataset, args.root, mode="test", cfg=cfg.data)
     model, speaker_sd = load_model(cfg, args.model_path, device)
+    vocoder = load_vocoder(cfg, args.vocoder_checkpoint, device)
     logger = MetricLogger(args.out, tensorboard=False)
 
     speaker = None
@@ -80,11 +82,11 @@ def main(argv=None) -> list[dict]:
             with torch.no_grad():
                 spk = None if speaker is None else speaker.inference(batch["audio"])
                 out = model(batch["video"], batch["faces"], speaker_embedding=spk, generator=gen)
-                wav_pred = mel_to_audio(out["mel_postnet"], cfg.audio, n_iter=args.gl_iters,
-                                        generator=gen)
+                wav_pred = mel_to_waveform(out["mel_postnet"], cfg, vocoder, n_iter=args.gl_iters,
+                                           generator=gen)
                 n_gt = int(raw["audio_lengths"][0])
-                wav_gt = mel_to_audio(batch["mel"][0], cfg.audio, n_iter=args.gl_iters,
-                                      generator=gen)[:n_gt]
+                wav_gt = mel_to_waveform(batch["mel"][0], cfg, vocoder, n_iter=args.gl_iters,
+                                         generator=gen)[:n_gt]
             n_steps = int(out["lengths"][0])
             wav_pred = wav_pred[0, : n_steps * hop].cpu().numpy()
             gt = np.asarray(raw["audio"])[0, :n_gt]

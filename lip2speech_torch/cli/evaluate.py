@@ -9,6 +9,7 @@ score over every rank's clips.
 
 Usage: python -m lip2speech_torch.cli.evaluate --dataset LRW --root ... \
          [--model_path ckpt_dir_or.pth] [--device cuda]
+         [--override vocoder.kind=bigvgan [--vocoder_checkpoint g.pt]]
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import argparse
 import json
 
 from lip2speech_torch.cli.common import (add_common_args, add_dist_args, common_config,
-                                         load_model, start_data_parallel)
+                                         load_model, load_vocoder, start_data_parallel)
 from lip2speech_torch.data import get_dataset
 from lip2speech_torch.eval.evaluate import evaluate_net
 from lip2speech_torch.parallel import dist as pdist
@@ -47,9 +48,11 @@ def main(argv=None) -> float:
         ds = get_dataset(args.dataset, args.root, mode="test", cfg=cfg.data)
         bs = min(args.batch_size, max(len(ds), 1))
         model, _ = load_model(cfg, args.model_path, device)
+        vocoder = load_vocoder(cfg, args.vocoder_checkpoint, device)
         score = evaluate_net(model, ds, cfg, batch_size=bs, n_gl_iters=args.gl_iters,
                              max_batches=args.max_batches, seed=args.seed,
-                             device_estoi=args.device_estoi, metric=args.metric, dp=dp)
+                             device_estoi=args.device_estoi, metric=args.metric, dp=dp,
+                             vocoder=vocoder)
     finally:
         pdist.shutdown(dp)
     if pdist.is_main(dp):

@@ -1,12 +1,14 @@
 """Long-video synthesis CLI on the PyTorch port: silent video of any length
--> chunked batched decode -> one Griffin-Lim pass -> waveform.
+-> chunked batched decode -> one vocoder pass (Griffin-Lim, or BigVGAN
+under ``--override vocoder.kind=bigvgan``) -> waveform.
 
 Input: ``--frames_npz``, an .npz with ``mouth`` (T, 96, 96, 3) uint8
 mouth-ROI frames at 25 fps and ``faces`` (n_crops, 160, 160, 3) uint8
 identity crops; or ``--from_lrw``, an LRW-format root whose first
 ``--n_clips`` test clips are concatenated into one long video (with the
 face crops of the first). Weights: a reference ``.pth`` (``--model_path``)
-or random weights made from ``--seed``.
+or random weights made from ``--seed``; the vocoder's from
+``--vocoder_checkpoint``, or random from ``train.seed``.
 
 Usage: python -m lip2speech_torch.cli.synthesize --frames_npz clip.npz --out out.wav
        python -m lip2speech_torch.cli.synthesize --from_lrw <root> --n_clips 4 --out out.wav
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from lip2speech_torch import weights
+from lip2speech_torch.cli.common import load_vocoder
 from lip2speech_torch.config import Config, config_with_overrides
 from lip2speech_torch.data import LRW
 from lip2speech_torch.eval.long_video import synthesize_long_video
@@ -39,6 +42,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--device", default=None, help="default: cuda")
     p.add_argument("--override", action="append", default=[])
+    p.add_argument("--vocoder_checkpoint", default=None,
+                   help="BigVGAN generator checkpoint, with --override vocoder.kind=bigvgan")
     return p.parse_args(argv)
 
 
@@ -83,7 +88,8 @@ def main(argv=None) -> np.ndarray:
     faces = image_ops.normalize_face(torch.as_tensor(faces_u8)).numpy()
     gl_gen = torch.Generator(device=device).manual_seed(args.seed)
     wav, mel = synthesize_long_video(model, video, faces, cfg, device, gl_gen,
-                                     n_gl_iters=args.gl_iters)
+                                     n_gl_iters=args.gl_iters,
+                                     vocoder=load_vocoder(cfg, args.vocoder_checkpoint, device))
 
     from scipy.io import wavfile
 

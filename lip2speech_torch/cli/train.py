@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 from lip2speech_torch.cli.common import (add_common_args, add_dist_args, common_config,
-                                         load_model, start_data_parallel)
+                                         load_model, load_vocoder, start_data_parallel)
 from lip2speech_torch.config import Config, TrainConfig
 from lip2speech_torch.data import FaceAugmentation, Loader, get_dataset
 from lip2speech_torch.data.collate import prepare_batch, to_device
@@ -196,6 +196,7 @@ def _train(args, cfg: Config, dp, device, batch_size: int) -> dict:
     steps_per_epoch = max(len(ds) // batch_size, 1)
 
     model, _ = load_model(cfg, args.finetune_model_path or args.model_path, device)
+    vocoder = load_vocoder(cfg, args.vocoder_checkpoint, device)
     tensor.shard_(model, dp)
     state = create_train_state(cfg, model)
     start_it, best_score = 0, -1.0
@@ -333,7 +334,7 @@ def _train(args, cfg: Config, dp, device, batch_size: int) -> dict:
 
                 if (it + 1) % eval_interval == 0:
                     score = evaluate_net(model, eval_ds, cfg, batch_size=min(32, batch_size),
-                                         max_batches=args.eval_batches, dp=dp)
+                                         max_batches=args.eval_batches, dp=dp, vocoder=vocoder)
                     logger.scalars(it + 1, {"estoi": score}, prefix="eval/")
                     logger.histograms(it + 1, tensor.full_named_parameters(model))
                     say(f"[{it + 1}] eval ESTOI {score:.4f} (best {best_score:.4f})")

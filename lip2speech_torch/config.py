@@ -2,7 +2,8 @@
 
 The port's own copy of the dataclasses that ``lip2speech_tpu/config.py``
 defines, with the same defaults, so one ``Config`` value describes the same
-model to both packages: audio, model, data, train and mesh.
+model to both packages: audio, model, data, train and mesh. The vocoder
+section is the port's alone: which stage turns the mel into a waveform.
 
 The mesh section is inert in both packages: nothing reads ``cfg.mesh``. It
 is kept so that ``--override mesh.*`` means the same to both packages'
@@ -139,6 +140,38 @@ class MeshConfig:
     model_parallel: int = 1
 
 
+VOCODERS = ("griffin_lim", "bigvgan")
+
+
+def _tuples(x):
+    return tuple(_tuples(v) for v in x) if isinstance(x, (list, tuple)) else x
+
+
+@dataclasses.dataclass(frozen=True)
+class VocoderConfig:
+    """The mel -> waveform stage (the port's alone; ``models/vocoder.py``).
+    ``griffin_lim`` is NNLS and Griffin-Lim (``ops/griffin_lim.py``), the
+    reference repo's inversion; ``bigvgan`` is the BigVGAN generator
+    (arXiv:2206.04658), whose widths default to NVIDIA/BigVGAN's
+    ``configs/bigvgan_22khz_80band.json`` (its ``resblock`` "1" and
+    ``activation`` "snakebeta" on a log scale are the only ones the port
+    has). Lists given by ``--override`` are kept as tuples, so a config
+    stays hashable."""
+
+    kind: str = "griffin_lim"
+    upsample_rates: Tuple[int, ...] = (4, 4, 2, 2, 2, 2)
+    upsample_kernel_sizes: Tuple[int, ...] = (8, 8, 4, 4, 4, 4)
+    upsample_initial_channel: int = 1536
+    resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+
+    def __post_init__(self):
+        if self.kind not in VOCODERS:
+            raise ValueError(f"vocoder.kind {self.kind!r} is not one of {VOCODERS}")
+        for f in dataclasses.fields(self):
+            object.__setattr__(self, f.name, _tuples(getattr(self, f.name)))
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
     audio: AudioConfig = dataclasses.field(default_factory=AudioConfig)
@@ -146,6 +179,7 @@ class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    vocoder: VocoderConfig = dataclasses.field(default_factory=VocoderConfig)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -1,11 +1,12 @@
-"""Evaluation: batched forward -> Griffin-Lim inversion -> mean ESTOI.
+"""Evaluation: batched forward -> the vocoder -> mean ESTOI.
 
 Counterpart of ``lip2speech_tpu/eval/evaluate.py``, on one process or,
 under data parallelism, on each rank's shard of the clips. The forward
 runs in eval mode with the ground-truth mels and ``tf_ratio=1``, which no
 teacher frame passes, so the decoder runs free for the mels' length: ``Decoder.forward`` sends it through ``kernels.ar_decode``, the
-CUDA kernel for tensors on the card. The postnet output is inverted (NNLS,
-then Griffin-Lim) and scored per clip against the ground-truth waveform,
+CUDA kernel for tensors on the card. The postnet output goes through the
+vocoder ``cfg.vocoder`` names (``models.vocoder.mel_to_waveform``: NNLS
+then Griffin-Lim, or BigVGAN) and is scored per clip against the ground-truth waveform,
 on the host in float64 (``ops.estoi.estoi``) or, with ``device_estoi``, on
 the device (``ops.estoi.estoi_batch``).
 
@@ -39,8 +40,8 @@ from torch.func import functional_call
 from lip2speech_torch.config import Config
 from lip2speech_torch.data.collate import prepare_batch, to_device
 from lip2speech_torch.data.loader import Loader
+from lip2speech_torch.models.vocoder import mel_to_waveform
 from lip2speech_torch.ops import estoi as estoi_ops
-from lip2speech_torch.ops.griffin_lim import mel_to_audio
 from lip2speech_torch.parallel.dist import (DataParallel, RowDraws, agree_over_model_group_,
                                             all_reduce_)
 from lip2speech_torch.train.train_step import cast_floats, step_generator
@@ -48,13 +49,15 @@ from lip2speech_torch.train.train_step import cast_floats, step_generator
 
 class EvalProgram:
     """The eval tick's device work for one (model, cfg, Griffin-Lim
-    iterations, metric): made once by :func:`eval_program` and reused by
-    every tick."""
+    iterations, metric, vocoder): made once by :func:`eval_program` and
+    reused by every tick."""
 
-    def __init__(self, model: torch.nn.Module, cfg: Config, n_gl_iters: int, metric: str):
+    def __init__(self, model: torch.nn.Module, cfg: Config, n_gl_iters: int, metric: str,
+                 vocoder: torch.nn.Module | None = None):
         self.model = model
         self.cfg = cfg
         self.n_gl_iters = n_gl_iters
+        self.vocoder = vocoder
         self.batch_metric = estoi_ops.estoi_batch if metric == "estoi" else estoi_ops.stoi_batch
 
     def weights(self) -> dict | None:
@@ -92,9 +95,10 @@ class EvalProgram:
             model.train(was_training)
 
     def invert(self, mel: torch.Tensor, theta: torch.Tensor | None, generator) -> torch.Tensor:
-        """(B, n_mels, M) log-mel -> (B, (M - 1) * hop) waveform, f32."""
-        return mel_to_audio(mel.float(), self.cfg.audio, n_iter=self.n_gl_iters,
-                            generator=generator, theta=theta)
+        """(B, n_mels, M) log-mel -> (B, (M - 1) * hop) waveform by
+        Griffin-Lim, (B, M * hop) by BigVGAN, f32."""
+        return mel_to_waveform(mel.float(), self.cfg, self.vocoder, n_iter=self.n_gl_iters,
+                               generator=generator, theta=theta)
 
     def score(self, clean: torch.Tensor, wav: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """The batched metric of each row on the device, float64."""
@@ -102,8 +106,9 @@ class EvalProgram:
 
 
 @functools.lru_cache(maxsize=8)
-def eval_program(model: torch.nn.Module, cfg: Config, n_gl_iters: int, metric: str) -> EvalProgram:
-    return EvalProgram(model, cfg, n_gl_iters, metric)
+def eval_program(model: torch.nn.Module, cfg: Config, n_gl_iters: int, metric: str,
+                 vocoder: torch.nn.Module | None = None) -> EvalProgram:
+    return EvalProgram(model, cfg, n_gl_iters, metric, vocoder)
 
 
 def _pad_rows(v, reps: int):
@@ -116,7 +121,8 @@ def _pad_rows(v, reps: int):
 def evaluate_net(model: torch.nn.Module, dataset, cfg: Config, batch_size: int = 32,
                  n_gl_iters: int = 32, max_batches: int | None = None, seed: int = 0,
                  device_estoi: bool = False, metric: str = "estoi", thetas=None,
-                 stats: dict | None = None, dp: DataParallel | None = None) -> float:
+                 stats: dict | None = None, dp: DataParallel | None = None,
+                 vocoder: torch.nn.Module | None = None) -> float:
     """Mean ESTOI (or STOI, or PESQ on the host) of ``model`` over
     ``dataset``, on the model's device. A ragged last batch is padded by
     repeating its row 0 and scored on its real rows. ``thetas[i]`` is
@@ -126,7 +132,8 @@ def evaluate_net(model: torch.nn.Module, dataset, cfg: Config, batch_size: int =
     device and ``prepare_batch``), ``forward_s``, ``griffin_lim_s``,
     ``metric_s`` (wall seconds of each batch), ``batches`` and this rank's
     per-clip ``scores``. Under ``dp`` every rank calls it and gets the mean
-    over every data index's clips (the module docstring)."""
+    over every data index's clips (the module docstring). ``vocoder`` is
+    the generator under ``vocoder.kind=bigvgan`` (``build_vocoder``)."""
     assert metric in ("estoi", "stoi", "pesq"), metric
     from lip2speech_torch.eval.metrics import get_waveform_metric
 
@@ -134,7 +141,7 @@ def evaluate_net(model: torch.nn.Module, dataset, cfg: Config, batch_size: int =
         raise ValueError("pesq has no on-device variant; drop --device_estoi")
     host_fn = get_waveform_metric(metric)
     dev = next(model.parameters()).device
-    program = eval_program(model, cfg, n_gl_iters, "stoi" if metric == "stoi" else "estoi")
+    program = eval_program(model, cfg, n_gl_iters, "stoi" if metric == "stoi" else "estoi", vocoder)
     weights = program.weights()
     # JAX's rule: shard the loader only when the batch splits evenly
     shard = dp is not None and batch_size % dp.n_data == 0

@@ -2,8 +2,9 @@
 
 Counterpart of ``lip2speech_tpu/eval/long_video.py``: split the silent
 video into fixed windows, decode every window in one batch, keep each
-window's pro-rata mel frames, concatenate, and run Griffin-Lim once over
-the whole so chunk boundaries share one phase.
+window's pro-rata mel frames, concatenate, and run the vocoder once over
+the whole (``models.vocoder.mel_to_waveform``), so chunk boundaries share
+one Griffin-Lim phase, or one BigVGAN pass.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from lip2speech_torch.config import Config
-from lip2speech_torch.ops import griffin_lim as gl_ops
+from lip2speech_torch.models.vocoder import mel_to_waveform
 
 
 def chunk_video(video: np.ndarray, chunk_frames: int) -> tuple[np.ndarray, int]:
@@ -44,10 +45,12 @@ def synthesize_long_video(model, video: np.ndarray, faces: np.ndarray, cfg: Conf
                           device: torch.device, generator: torch.Generator | None = None,
                           n_gl_iters: int = 32,
                           speaker_embedding: np.ndarray | None = None,
-                          compute_dtype=torch.bfloat16) -> tuple[np.ndarray, np.ndarray]:
+                          compute_dtype=torch.bfloat16,
+                          vocoder: torch.nn.Module | None = None) -> tuple[np.ndarray, np.ndarray]:
     """Waveform for a video of any length from normalised mouth frames
     (T, H, W, 3) and identity crops (n_crops, Hf, Wf, 3). Returns
-    (waveform, log-mel (n_mels, M_total))."""
+    (waveform, log-mel (n_mels, M_total)). ``vocoder`` is the generator
+    under ``vocoder.kind=bigvgan`` (``models.vocoder.build_vocoder``)."""
     chunk_frames = cfg.data.max_video_frames
     chunks, tail_valid = chunk_video(np.asarray(video), chunk_frames)
     n = chunks.shape[0]
@@ -62,6 +65,6 @@ def synthesize_long_video(model, video: np.ndarray, faces: np.ndarray, cfg: Conf
 
     counts = chunk_mel_counts(n, chunk_frames, tail_valid, cfg.audio.sample_rate, cfg.audio.hop_length)
     mel_cat = torch.cat([mels[i, :, :m] for i, m in enumerate(counts)], dim=1)
-    wav = gl_ops.mel_to_audio(mel_cat[None], cfg.audio, n_iter=n_gl_iters,
-                              compute_dtype=compute_dtype, generator=generator)
+    wav = mel_to_waveform(mel_cat[None], cfg, vocoder, n_iter=n_gl_iters,
+                          compute_dtype=compute_dtype, generator=generator)
     return wav[0].cpu().numpy(), mel_cat.cpu().numpy()

@@ -1,5 +1,6 @@
 """Models of the PyTorch port: the video encoder, the face net, the decoder,
-the WGAN critic, the voice encoder and the whole network."""
+the WGAN critic, the voice encoder, the whole network and the BigVGAN
+vocoder."""
 
 from lip2speech_torch.models import layers  # noqa: F401
 from lip2speech_torch.models.decoder import ContentEncoder, Decoder, MultiHopConv, Postnet  # noqa: F401
@@ -9,3 +10,4 @@ from lip2speech_torch.models.lip2speech import Lip2Speech, get_network  # noqa: 
 from lip2speech_torch.models.shufflenet import ShuffleNetV2Trunk  # noqa: F401
 from lip2speech_torch.models.speaker import SpeakerEncoder  # noqa: F401
 from lip2speech_torch.models.video import VideoExtractor  # noqa: F401
+from lip2speech_torch.models.vocoder import BigVGAN  # noqa: F401

@@ -16,11 +16,15 @@ opened a recording records into it.
 
 The names are the port's layers: ``model.forward``, ``model.face_net``,
 ``decoder.encode``, ``decoder.ar_decode``, ``decoder.postnet``,
-``decoder.teacher_forced``, ``data.prepare_batch``, ``train.*`` and
-``adversarial.*``. The profiler gives a kernel to the innermost range open
-at its launch alone, so a span opened inside another range takes that
-range's device time from it. The video encoder and ``mel_to_audio`` open no
-span: their callers' ranges time each as a whole.
+``decoder.teacher_forced``, ``data.prepare_batch``, ``train.*``,
+``adversarial.*`` and the BigVGAN vocoder's ``vocoder.forward``,
+``vocoder.upsample``, ``vocoder.amp`` and ``vocoder.activation``. The
+profiler gives a kernel to the innermost range open at its launch, and
+stamps each range on the device from its first own kernel to its last: a
+span opened inside another range takes that range's device time from it,
+and a range whose own kernels bracket another's also spans those. The
+video encoder and ``mel_to_audio`` open no span: their callers' ranges time
+each as a whole.
 """
 
 from __future__ import annotations

@@ -304,6 +304,46 @@ def load_reference_pth(path: str) -> tuple[dict, dict]:
     return main, speaker
 
 
+# a BigVGAN checkpoint's filter buffers -> the port's (``models/vocoder.py``)
+_BIGVGAN_FILTERS = {".upsample.filter": ".up_filter", ".downsample.lowpass.filter": ".down_filter"}
+# weight norm's (magnitude, direction) under torch.nn.utils.weight_norm and
+# under torch.nn.utils.parametrizations.weight_norm
+_WEIGHT_NORM = ((".weight_g", ".weight_v"),
+                (".parametrizations.weight.original0", ".parametrizations.weight.original1"))
+
+
+def fold_bigvgan(checkpoint, model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """A BigVGAN generator's state dict with plain weights, for
+    ``models.vocoder.BigVGAN``. ``checkpoint`` is the path of a BigVGAN
+    checkpoint (its ``generator`` entry is read) or a state dict. Weight
+    norm's pairs, in either of torch's namings, fold to g * v / ||v|| (the
+    norm over every dim but 0); the anti-aliasing filters are dropped, each
+    first checked against ``model``'s own when ``model`` is given."""
+    sd = checkpoint
+    if isinstance(checkpoint, str):
+        sd = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    sd = dict(sd.get("generator", sd))
+    own = dict(model.named_buffers()) if model is not None else {}
+    out = {}
+    for k, v in sd.items():
+        filt = next((s for s in _BIGVGAN_FILTERS if k.endswith(s)), None)
+        if filt is not None:
+            mine = own.get(k[: -len(filt)] + _BIGVGAN_FILTERS[filt])
+            if mine is not None and not torch.allclose(v.reshape(-1).float(), mine.reshape(-1).float(),
+                                                       atol=1e-6):
+                raise ValueError(f"{k} is not the filter the port computes")
+            continue
+        pair = next((p for p in _WEIGHT_NORM if k.endswith(p[0])), None)
+        if pair is not None:
+            base = k[: -len(pair[0])]
+            g, w = v, sd[base + pair[1]]
+            norm = w.flatten(1).norm(dim=1).view(-1, *[1] * (w.ndim - 1))
+            out[base + ".weight"] = g * w / norm
+        elif not any(k.endswith(p[1]) for p in _WEIGHT_NORM):
+            out[k] = v
+    return out
+
+
 # flax leaf -> torch leaf of the tensors ``named_from_flax`` carries
 _LEAF = {("params", "kernel"): "weight", ("params", "scale"): "weight",
          ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
